@@ -131,4 +131,45 @@ def assert_matches(got: dict, want: dict, b: int, tol: dict, batch_major: bool =
     np.testing.assert_allclose(to_np(got["ow2"])[:b], to_np(want["ow2"])[:b], rtol=1e-4)
     # the checksum sums ~2,000 signed terms: 1e-4 of the largest one
     assert rel(to_np(got["checksum"])[:b], to_np(want["checksum"])[:b]) < 1e-4
-    np.testing.assert_array_equal(to_np(got["cfo"])[:b], 0.0)
+    # the CFO estimate (0 without sync): an f32 correlation in another
+    # order moves its angle by ~1e-7 rad, eps = angle/(2π·64) by ~1e-9
+    np.testing.assert_allclose(to_np(got["cfo"])[:b], to_np(want["cfo"])[:b], rtol=0, atol=1e-6)
+    if "evm_sums" in want:
+        # Σ|eq − tx|² over 795 f32 terms per frame, summed in another order
+        np.testing.assert_allclose(to_np(got["evm_sums"])[:b], to_np(want["evm_sums"])[:b],
+                                   rtol=1e-4)
+
+
+def make_streams(seed: int, b: int, ns: int = 2048, noise: float = 1e-4, n_empty: int = 0,
+                 offs_range: tuple[int, int] | None = None):
+    """b raw streams of ns samples, batch-major complex128: the capture's rx
+    frame (preamble + packet, 1360 samples) at a random offset in each,
+    over complex AWGN of ``noise`` per plane (bench.py's raw workload);
+    the last ``n_empty`` streams carry noise only.  Returns (streams,
+    offsets)."""
+    cap = load_capture()
+    rng = np.random.default_rng(seed)
+    frame = np.concatenate([cap.rx_lptot, cap.rx_packet])
+    lo, hi = offs_range or (40, ns - 1400)
+    x = (rng.standard_normal((b, ns)) + 1j * rng.standard_normal((b, ns))) * noise
+    offs = rng.integers(lo, hi, b)
+    for i, o in enumerate(offs[:b - n_empty]):
+        x[i, o:o + frame.size] += frame
+    return x, offs
+
+
+def lts_taps() -> np.ndarray:
+    """The matched filter's reference: the capture's transmit LTS (the last
+    64 samples of its long preamble), complex64."""
+    return load_capture().tx_lptot[-C.N_FFT:].astype(np.complex64)
+
+
+def with_cfo(frames, eps: float):
+    """Batch-major (tx packet, rx packet, tx preamble, rx preamble) frames
+    with a CFO of ``eps`` cycles/sample on the rx side, continuous from the
+    preamble (t = 0) into the packet (t = 160)."""
+    tx_pkt, rx_pkt, tx_lp, rx_lp = frames
+    rot_lp = np.exp(2j * np.pi * eps * np.arange(C.PREAMBLE_SAMPLES))
+    rot_pkt = np.exp(2j * np.pi * eps * (C.PREAMBLE_SAMPLES + np.arange(C.PACKET_SAMPLES)))
+    return (tx_pkt, (rx_pkt * rot_pkt).astype(np.complex64), tx_lp,
+            (rx_lp * rot_lp).astype(np.complex64))

@@ -1,4 +1,4 @@
-"""The fused-chain CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -6,16 +6,25 @@ file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
 from tpu80211_torch.cplx import Cplx
+from tpu80211_torch.datasets.loader import load_capture
+from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
+from tpu80211_torch.kernels import raw_chain as R
+from tpu80211_torch.pipeline import raw as P
 
-from _torch_inputs import TOL, assert_matches, lane_major, make_frames, torch_planes
+from _torch_inputs import (TOL, assert_matches, lane_major, lts_taps, make_frames, make_streams,
+                           torch_planes, with_cfo)
 
-B = 1000  # ragged: no multiple of the kernel's 32 frames per block
+B = 1000  # ragged: no multiple of the kernels' 32 frames per block
+NS = 2048
+EPS = 1e-3  # a 20 kHz CFO at 20 MS/s
 STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.float32}
+RAW_STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 CASES = {
     "txconst-f32": dict(mode="txconst", dtype="f32"),
     "txconst-bf16": dict(mode="txconst", dtype="bf16"),
@@ -27,13 +36,19 @@ CASES = {
     "txconst-wiener-prior": dict(mode="txconst", dtype="f32", wiener=("E", 5.0)),
     "per-frame-f32": dict(mode="frames", dtype="f32"),
     "per-frame-bf16": dict(mode="frames", dtype="bf16", eps=-0.02),
+    "txconst-f32-sync": dict(mode="txconst", dtype="f32", sync=True),
+    "txconst-bf16-sync-evm": dict(mode="txconst", dtype="bf16", sync=True, evm_sums=True),
+    "txconst-int8-sync-evm": dict(mode="txconst", dtype="int8", sync=True, evm_sums=True),
+    "txconst-f32-evm": dict(mode="txconst", dtype="f32", evm_sums=True, equalize_with="h_mmse"),
+    "per-frame-f32-sync": dict(mode="frames", dtype="f32", sync=True),
+    "per-frame-bf16-sync-evm": dict(mode="frames", dtype="bf16", sync=True, evm_sums=True),
 }
 
 
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the fused-chain kernel runs only on the card")
+        pytest.skip("no CUDA device: the kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
@@ -41,7 +56,9 @@ def dev():
 
 @pytest.fixture(scope="module")
 def frames():
-    return make_frames(seed=5, b=B), make_frames(seed=6, b=B, tx_const=True)
+    """Per-frame-tx and tx-constant frames, each with a 20 kHz CFO."""
+    return (with_cfo(make_frames(seed=5, b=B), EPS),
+            with_cfo(make_frames(seed=6, b=B, tx_const=True), EPS))
 
 
 def _on(x, dtype, dev) -> Cplx:
@@ -71,6 +88,12 @@ def test_kernel_matches_plain(case, frames, dev):
     assert F.launches == before + 1
     want = F.fused_chain_plain(rp, rl, tx, consts, **kw)
     assert_matches(got, want, B, TOL[dtype])
+    if kw.get("sync"):
+        # tests/test_cfo.py:47's 2% on float samples; 8-bit words of the
+        # batch's full scale add quantization noise to the LTS correlation
+        # (3.3% measured on the card)
+        bound = 5e-2 if dtype == "int8" else 2e-2
+        assert float((got["cfo"] - EPS).abs().max()) < bound * EPS
 
 
 @pytest.mark.cuda
@@ -80,12 +103,132 @@ def test_batch_major_entry_matches_plain(frames, dev):
     tx_pkt, rx_pkt, tx_lp, rx_lp = frames[0]
     before = F.launches
     got = F.fused_rx_chain(*(torch_planes(x).map(lambda t: t.to(dev))
-                             for x in (tx_pkt, rx_pkt, tx_lp, rx_lp)))
+                             for x in (tx_pkt, rx_pkt, tx_lp, rx_lp)), sync=True)
     want = F.fused_chain_plain(_on(rx_pkt, torch.float32, dev), _on(rx_lp, torch.float32, dev),
                                F.TxFrames(_on(tx_pkt, torch.float32, dev),
                                           _on(tx_lp, torch.float32, dev)),
-                               F.chain_consts(dev))
+                               F.chain_consts(dev), sync=True)
     assert F.launches == before + 1
     lane = {k: v if v is None or k in ("ow2", "cfo", "checksum") else
             v.map(lambda t: t.permute(1, 2, 0) if t.dim() == 3 else t.T) for k, v in got.items()}
     assert_matches(lane, want, B, TOL["f32"])
+
+
+# -- detection, alignment, placement and the raw receiver -----------------------------
+
+
+def _streams(dtype: str, dev, cfo: float = 0.0):
+    """B lane-major raw streams on the card (the capture's frame at offsets
+    in [40, NS − 1400) over 1e-4 AWGN; the last 50 of noise only), in the
+    storage dtype; int8 streams are ADC words with their step.  Returns
+    (streams, offsets, lsb)."""
+    x, offs = make_streams(seed=21, b=B, ns=NS, n_empty=50)
+    x = x * np.exp(2j * np.pi * cfo * np.arange(NS))
+    re, im = (torch.tensor(np.ascontiguousarray(v.T), dtype=torch.float32, device=dev)
+              for v in (x.real, x.imag))
+    lsb = 1.0
+    if dtype == "int8":
+        lsb = max(float(re.abs().max()), float(im.abs().max())) / 127
+        re, im = (torch.clamp(torch.round(v / lsb), -127, 127) for v in (re, im))
+    return Cplx(re.to(RAW_STORAGE[dtype]), im.to(RAW_STORAGE[dtype])), offs, lsb
+
+
+def _taps(dev) -> Cplx:
+    h = lts_taps()
+    return Cplx(torch.tensor(h.real.copy(), device=dev), torch.tensor(h.imag.copy(), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("decimate", [False, 16, 32, 64])
+def test_detect_kernel_matches_plain(dtype, decimate, dev):
+    x, offs, _ = _streams(dtype, dev)
+    before = D.launches
+    got = D.detect_streams(x, _taps(dev), decimate=decimate)
+    torch.cuda.synchronize()
+    assert D.launches == before + 1
+    want = D.detect_plain(x, _taps(dev), decimate=decimate)
+    for k in ("detected", "coarse", "start"):
+        assert torch.equal(got[k], getattr(want, k)), k
+    # both sum in f64; the metric is rounded to f32 once
+    err = ((got["metric"] - want.metric).abs() / want.metric.abs().clamp_min(1e-30)).max()
+    assert float(err) <= 1e-5
+    assert got["detected"][:B - 50].all() and not got["detected"][B - 50:].any()
+    band = got["start"][:B - 50].cpu().numpy() - offs[:B - 50]
+    assert band.min() >= -4 and band.max() <= -2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_detect_and_align_cuts_bit_exact(dtype, dev):
+    x, _, _ = _streams(dtype, dev)
+    det, lp, pkt = D.detect_and_align(x, _taps(dev))
+    torch.cuda.synchronize()
+    s = torch.where(det["detected"], det["start"], 0).clamp(0, NS - 1360).long()
+    rows = s[None, :] + torch.arange(1360, device=dev)[:, None]
+    for plane, a, b in ((x.re, lp.re, pkt.re), (x.im, lp.im, pkt.im)):
+        assert a.dtype == plane.dtype
+        assert torch.equal(torch.cat([a, b]), torch.gather(plane, 0, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("noise_dtype", [torch.float32, torch.bfloat16])
+def test_place_kernel_matches_plain(sig_dtype, noise_dtype, dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sig = Cplx(*(torch.randn(NS, B, generator=gen, device=dev).to(sig_dtype) for _ in range(2)))
+    noise = Cplx(*(1e-4 * torch.randn(NS, B, generator=gen, device=dev).to(noise_dtype)
+                   for _ in range(2)))
+    offs = torch.randint(0, NS, (B,), generator=gen, device=dev, dtype=torch.int32)
+    before = D.place_launches
+    got = D.place_streams(sig, noise, offs)
+    torch.cuda.synchronize()
+    assert D.place_launches == before + 1
+    want = D.place_plain(sig, noise, offs)
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+
+
+RAW_CASES = {
+    "f32": dict(dtype="f32"),
+    "bf16-stream-sums-mmse": dict(dtype="bf16", stream_sums=True, equalize_with="h_mmse"),
+    "bf16-dec32-serve": dict(dtype="bf16", decimate=32, serve=True),
+    "int8-stream-sums": dict(dtype="int8", stream_sums=True, equalize_with="h_mmse"),
+    "bf16-sync-stream-sums": dict(dtype="bf16", sync=True, stream_sums=True),
+    "f32-sync-full-res-wiener": dict(dtype="f32", sync=True, decimate=False,
+                                     equalize_with="h_wiener"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RAW_CASES))
+def test_raw_kernel_matches_plain(case, dev):
+    kw = dict(RAW_CASES[case])
+    dtype = kw.pop("dtype")
+    x, offs, lsb = _streams(dtype, dev, cfo=EPS if kw.get("sync") else 0.0)
+    cap = load_capture()
+    txc = F.tx_spectra(*(torch_planes(a).map(lambda t: t.to(dev))
+                         for a in (cap.tx_packet, cap.tx_lptot)))
+    before = R.launches
+    got = R.raw_rx_txconst_fused(x, _taps(dev), *txc, lsb=lsb, **kw)
+    torch.cuda.synchronize()
+    assert R.launches == before + 1
+    want = R.raw_chain_plain(x, _taps(dev), *txc, lsb=lsb, **kw)
+    for k in ("detected", "start"):
+        assert torch.equal(got[k], want[k]), k
+    assert (got["eq"] is None) == bool(kw.get("stream_sums"))
+    assert_matches(got, want, B, TOL["f32" if dtype == "f32" else "bf16"])
+
+
+@pytest.mark.cuda
+def test_staged_receiver_equals_fused_kernel(dev):
+    """The staged receiver (detect-and-align kernel, then the chain kernel)
+    and the one-kernel receiver run the same code on the same samples."""
+    x, _, _ = _streams("bf16", dev)
+    cap = load_capture()
+    txc = F.tx_spectra(*(torch_planes(a).map(lambda t: t.to(dev))
+                         for a in (cap.tx_packet, cap.tx_lptot)))
+    staged = P.raw_rx_txconst(x, _taps(dev), *txc)
+    fused = R.raw_rx_txconst_fused(x, _taps(dev), *txc, decimate=False)
+    torch.cuda.synchronize()
+    assert torch.equal(staged["start"], fused["start"])
+    assert_matches(fused, staged, B, TOL["bf16"])

@@ -231,13 +231,6 @@ def test_fused_txconst_matches_regular(frames):
         assert rel(to_np(got[name]), to_np(want[name])) < tol, name
 
 
-@pytest.mark.parametrize("kw", [{"sync": True}, {"evm_sums": True}])
-def test_sync_and_evm_sums_not_ported(port_in, kw):
-    lane = tuple(_lane(x) for x in port_in)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        TF.fused_chain(lane[1], lane[3], TF.TxFrames(lane[0], lane[2]), TF.chain_consts("cpu"), **kw)
-
-
 def test_wrapper_never_falls_back(port_in):
     """A tensor off the CPU launches the kernel or raises: on a device that
     is not CUDA, the wrapper raises instead of running the plain version."""

@@ -68,6 +68,23 @@ def test_build_names_library_by_source_hash(tmp_path, monkeypatch):
     assert len({lib, with_header, _build.library_path(src, tmp_path)}) == 3
 
 
+def test_build_all_compiles_only_what_is_missing(tmp_path, monkeypatch):
+    """Libraries already there are used without a compiler; one that is
+    missing needs nvcc, and its absence raises before anything is built."""
+    srcs = [tmp_path / f"{n}.cu" for n in ("a", "b")]
+    for src in srcs:
+        src.write_text(f"// {src.stem}\n")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    libs = [_build.library_path(src, tmp_path) for src in srcs]
+    libs[0].write_bytes(b"")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all(srcs, tmp_path)
+    assert not libs[1].exists()
+    libs[1].write_bytes(b"")
+    assert _build.build_all(srcs, tmp_path) == libs
+
+
 def test_nvcc_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert {"-O3", "-shared", "-std=c++17"} <= set(_build.NVCC_FLAGS)

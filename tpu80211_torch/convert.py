@@ -2,7 +2,8 @@
 
 The JAX fused chain builds its constants as arrays: the block DFT and the
 interpolator stack (``tpu80211/kernels/fused_chain.py::_const_specs``)
-and the tx-constant spectra (``tx_spectra``).  Given as numpy arrays,
+and the tx-constant spectra (``tx_spectra``); its detector holds the LTS
+taps and their banded shift matrices (``detect_kernel._mf_bands``).  Given as numpy arrays,
 these functions turn them into the port's tensors on a device, so a caller
 can feed both packages the very same constants.
 """
@@ -33,3 +34,17 @@ def tx_spectra(txs_re, txs_im, tpre_re, tpre_im,
     → `TxConst` on ``device``."""
     return TxConst(Cplx(_f32(txs_re, device), _f32(txs_im, device)),
                    Cplx(_f32(tpre_re, device), _f32(tpre_im, device)))
+
+
+def lts_ref(h_re, h_im, device: torch.device | str = "cpu") -> Cplx:
+    """The detector's (64,) LTS taps (``ops/detect.py::lts_time_symbol``)
+    → float32 `Cplx` on ``device``, the ``lts_ref`` of the port's
+    detection entries."""
+    return Cplx(_f32(h_re, device), _f32(h_im, device))
+
+
+def mf_taps(wrr, wri, device: torch.device | str = "cpu") -> Cplx:
+    """``_mf_bands``' (64, 128) banded matched-filter matrices → float32
+    `Cplx` on ``device``; equal to the port's own
+    ``detect_kernel.mf_taps`` of the same LTS."""
+    return Cplx(_f32(wrr, device), _f32(wri, device))

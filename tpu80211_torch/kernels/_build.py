@@ -52,30 +52,51 @@ def library_path(source: pathlib.Path, build_dir: pathlib.Path = BUILD_DIR) -> p
 def build(source: pathlib.Path, build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
     """Compile ``source`` for sm_90a unless its library exists; returns the
     library's path."""
-    lib = library_path(source, build_dir)
-    if lib.exists():
-        return lib
+    return build_all([source], build_dir)[0]
+
+
+def build_all(sources, build_dir: pathlib.Path = BUILD_DIR) -> list[pathlib.Path]:
+    """Compile every source whose library is missing, one ``nvcc`` each, all
+    started together; returns the libraries' paths.  Raises if any build
+    fails (after every started build has ended)."""
+    libs = [library_path(pathlib.Path(src), build_dir) for src in sources]
+    todo = [(pathlib.Path(src), lib) for src, lib in zip(sources, libs) if not lib.exists()]
+    if not todo:
+        return libs
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent process sees
+    # build under temporary names, then rename: a concurrent process sees
     # either no library or a whole one
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
+    running = []
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(source)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {source.name} (exit {proc.returncode}):\n"
-                f"{proc.stderr}{proc.stdout}")
-        os.replace(tmp, lib)
+        for src, lib in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+            os.close(fd)
+            running.append((src, lib, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, lib, tmp, proc in running:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
+                              f"{err}{out}")
+            else:
+                os.replace(tmp, lib)
+        if errors:
+            raise RuntimeError("\n".join(errors))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+        for _, _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
+    """Build (if needed) and load ``csrc/<name>.cu``.  Callers that load
+    several may first build them in parallel with ``build_all``."""
     return ctypes.CDLL(str(build(CSRC / f"{name}.cu")))

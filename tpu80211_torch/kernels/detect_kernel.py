@@ -1,0 +1,330 @@
+"""Packet detection, alignment and stream placement on lane-major streams.
+
+The counterpart of ``tpu80211/kernels/detect_kernel.py``.  Streams are
+(NS, B) split planes, the stream axis last.  Two hand-written CUDA kernels
+(``csrc/detect.cu``) do the work on the card:
+
+* ``detect_streams`` / ``detect_and_align``: the Schmidl & Cox metric (full
+  resolution or decimated), the LTS matched filter, timing, and with
+  alignment each stream's 160 + 1200 frame rows cut at its start;
+* ``place_streams``: each stream's frame rolled down by its offset, plus
+  noise.
+
+``detect_plain`` and ``place_plain`` are the same functions in plain
+PyTorch; a wrapper runs them for CPU tensors only, and a CUDA tensor
+launches the kernel or raises.  ``detect_plain`` follows
+``_detect_core`` (``tpu80211/kernels/detect_kernel.py:98``), decimation
+included, with its window sums and matched filter in float64: an f32
+running sum drifts, and a drift can move a threshold crossing by a sample.
+Unlike the TPU kernel, B need not be a multiple of 128.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from tpu80211_torch import constants as C
+from tpu80211_torch.cplx import Cplx
+from tpu80211_torch.kernels import _build, require_cuda
+from tpu80211_torch.kernels.fused_chain import pointer_table, raise_on_error
+from tpu80211_torch.ops.detect import DEFAULT_THRESHOLD, LAG, WIN
+
+FRAME = C.PREAMBLE_SAMPLES + C.PACKET_SAMPLES  # 1360 rows cut per stream
+MF_CHUNK = 2 * LAG                             # matched-filter rows per band product
+MAX_SEARCH = 512  # the matched filter's window must fit one block's shared memory
+STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+# kernel launches since the count was last set to 0: detection (with or
+# without alignment) and placement (the plain versions never count)
+launches = 0
+place_launches = 0
+
+
+class Detection(NamedTuple):
+    """Per-stream rows, (B,) each: int32 indices are −1 where undetected."""
+
+    detected: torch.Tensor  # bool
+    coarse: torch.Tensor    # int32, the first metric crossing (samples)
+    start: torch.Tensor     # int32, the long preamble's first row
+    metric: torch.Tensor    # float32, the peak metric in the search window
+
+
+def stride_of(decimate) -> tuple[int, bool]:
+    """``decimate`` → (metric grid step, decimated?): False → full
+    resolution; True → 16; an int dividing 64 (2 … 64) → that stride."""
+    if decimate is False or decimate is None or decimate == 0:
+        return 1, False
+    s = 16 if decimate is True else int(decimate)
+    if s < 2 or WIN % s:
+        raise ValueError(f"decimate must be False, True or a divisor of {WIN} "
+                         f"from 2 to {WIN}, got {decimate!r}")
+    return s, True
+
+
+def mf_taps(lts_ref: Cplx) -> Cplx:
+    """The matched filter's banded shift matrices, W[d, j] = h[j − d] for
+    d < 64, j < 128: one product of W with 128 rows of a stream gives the
+    correlation at 64 offsets (``detect_kernel._mf_bands`` of the JAX
+    package).  Float32 on ``lts_ref``'s device."""
+    dev = lts_ref.re.device
+    d = torch.arange(LAG, device=dev)[:, None]
+    cols = d + torch.arange(LAG, device=dev)[None, :]
+
+    def band(h):
+        w = torch.zeros((LAG, MF_CHUNK), dtype=torch.float32, device=dev)
+        w[d.expand(LAG, LAG), cols] = h.to(torch.float32)[None, :].expand(LAG, LAG)
+        return w
+
+    return lts_ref.map(band)
+
+
+def check_streams(x: Cplx, lts_ref: Cplx, search: int) -> None:
+    """Raise on streams or taps the kernels do not take."""
+    if x.re.dtype not in STORAGE or x.im.dtype != x.re.dtype:
+        raise TypeError(f"stream storage must be float32, bfloat16 or int8, got "
+                        f"{x.re.dtype}/{x.im.dtype}")
+    if x.re.dim() != 2 or x.re.shape != x.im.shape:
+        raise ValueError(f"streams must be two (NS, B) planes, got {tuple(x.re.shape)} "
+                         f"and {tuple(x.im.shape)}")
+    ns, b = x.re.shape
+    if b < 1:
+        raise ValueError("empty batch")
+    if ns % LAG or ns < FRAME + LAG:
+        raise ValueError(f"NS must be a multiple of {LAG} and at least {FRAME + LAG} "
+                         f"(the frame plus one LTS lag), got {ns}")
+    if not 1 <= search <= MAX_SEARCH:
+        raise ValueError(f"search must be in [1, {MAX_SEARCH}], got {search}")
+    for t in (*x, *lts_ref):
+        if t.device != x.re.device:
+            raise ValueError(f"a tensor lies on {t.device}, the streams on {x.re.device}")
+        if not t.is_contiguous():
+            raise ValueError("streams and taps must be contiguous")
+    for t in lts_ref:
+        if tuple(t.shape) != (LAG,) or t.dtype != torch.float32:
+            raise ValueError(f"lts_ref: want ({LAG},) float32, got {tuple(t.shape)} {t.dtype}")
+
+
+# -- the plain versions -----------------------------------------------------------
+
+
+def _window_sums(v: torch.Tensor, w: int) -> torch.Tensor:
+    """Sliding sums of ``w`` rows along axis 0: out[d] = Σ_{k<w} v[d+k]."""
+    c = torch.cumsum(v, dim=0)
+    c = torch.cat([torch.zeros_like(c[:1]), c], dim=0)
+    return c[w:] - c[:-w]
+
+
+def detect_plain(x: Cplx, lts_ref: Cplx, threshold: float = DEFAULT_THRESHOLD,
+                 search: int = 192, advance: int = 4, decimate=False) -> Detection:
+    """Detection of lane-major (NS, B) streams in plain PyTorch, on any
+    device: ``_detect_core``'s semantics, with its index conventions,
+    decimation grid, windows and masks, in float64."""
+    check_streams(x, lts_ref, search)
+    stride, decimated = stride_of(decimate)
+    f64 = torch.float64
+    ns, b = x.re.shape
+    dev = x.re.device
+    xr, xi = x.re.to(torch.float32).to(f64), x.im.to(torch.float32).to(f64)
+
+    # -- Schmidl & Cox: M on the grid d = i·stride --
+    ar, ai, br, bi = xr[:-LAG], xi[:-LAG], xr[LAG:], xi[LAG:]
+    planes = (ar * br + ai * bi, ai * br - ar * bi, ar * ar + ai * ai, br * br + bi * bi)
+    if decimated:
+        nblk = (ns - LAG) // stride
+        planes = [v[:nblk * stride].view(nblk, stride, b).sum(1) for v in planes]
+        p_re, p_im, e1, e2 = (_window_sums(v, WIN // stride) for v in planes)
+    else:
+        p_re, p_im, e1, e2 = (_window_sums(v, WIN) for v in planes)
+    m = (p_re * p_re + p_im * p_im) / torch.clamp(e1 * e2, min=1e-30)   # (nm, B)
+    nm = m.shape[0]
+    above = m > threshold
+    det = above.any(0)
+    cross = torch.where(det, above.to(torch.int8).argmax(0), nm)
+    if decimated:
+        coarse = torch.clamp(cross * stride - stride, min=0)
+        search_fine = search + stride
+    else:
+        coarse, search_fine = cross, search
+
+    # -- matched filter by banded products, then 5-sums and the pair sum --
+    wr, wi = (t.to(f64) for t in mf_taps(lts_ref))
+    n_chunks = (ns - MF_CHUNK) // LAG + 1
+    cr = torch.stack([xr[c * LAG:c * LAG + MF_CHUNK] for c in range(n_chunks)])
+    ci = torch.stack([xi[c * LAG:c * LAG + MF_CHUNK] for c in range(n_chunks)])
+    yr = (wr @ cr + wi @ ci).reshape(-1, b)[:ns - LAG]
+    yi = (wr @ ci - wi @ cr).reshape(-1, b)[:ns - LAG]
+    mf = torch.sqrt(yr * yr + yi * yi).to(torch.float32).to(f64)       # (NS−64, B)
+    mf2 = mf[:-1] + mf[1:]
+    mf5 = (mf2[:-2] + mf2[2:])[:-1] + mf[4:]
+    pair = mf5[:-LAG] + mf5[LAG:]                                       # (NS−132, B)
+    idx = torch.arange(pair.shape[0], device=dev)[:, None]
+    mask = (idx >= coarse) & (idx < coarse + 2 * search_fine)
+    rep1 = torch.where(mask, pair, 0.0).argmax(0) + 2
+    start = rep1 - 32 - advance
+
+    # -- peak metric: the detected window, or [0, 2·search) --
+    idx_m = torch.arange(nm, device=dev)[:, None] * stride
+    lo_m = torch.where(det, coarse, 0)
+    hi_m = lo_m + torch.where(det, 2 * search_fine, 2 * search)
+    peak = torch.where((idx_m >= lo_m) & (idx_m < hi_m), m, 0.0).amax(0)
+    neg = torch.full_like(coarse, -1)
+    return Detection(det, torch.where(det, coarse, neg).to(torch.int32),
+                     torch.where(det, start, neg).to(torch.int32), peak.to(torch.float32))
+
+
+def extract_lane_major(x: Cplx, start: torch.Tensor) -> tuple[Cplx, Cplx]:
+    """(preamble (160, B), packet (1200, B)) cut from (NS, B) streams at each
+    stream's ``start``, clipped to [0, NS − 1360]; storage dtype kept."""
+    ns = x.re.shape[0]
+    s = torch.clamp(start.to(torch.int64), 0, ns - FRAME)
+    rows = s[None, :] + torch.arange(FRAME, device=s.device)[:, None]
+    fr, fi = torch.gather(x.re, 0, rows), torch.gather(x.im, 0, rows)
+    n = C.PREAMBLE_SAMPLES
+    return Cplx(fr[:n], fi[:n]), Cplx(fr[n:], fi[n:])
+
+
+def place_plain(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> Cplx:
+    """x[r, l] = sig[(r − offs[l]) mod NS, l] + noise[r, l], added in
+    float32 and rounded to sig's dtype."""
+    _check_place(sig, noise, offs)
+    ns = sig.re.shape[0]
+    rows = (torch.arange(ns, device=offs.device)[:, None] - offs.to(torch.int64)[None, :]) % ns
+    return Cplx(*((torch.gather(s, 0, rows).to(torch.float32) + n.to(torch.float32)).to(s.dtype)
+                  for s, n in zip(sig, noise)))
+
+
+def _check_place(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> None:
+    if sig.re.dtype not in (torch.float32, torch.bfloat16) or sig.im.dtype != sig.re.dtype:
+        raise TypeError(f"sig must be float32 or bfloat16, got {sig.re.dtype}")
+    if noise.re.dtype not in (torch.float32, torch.bfloat16) or noise.im.dtype != noise.re.dtype:
+        raise TypeError(f"noise must be float32 or bfloat16, got {noise.re.dtype}")
+    if sig.re.dim() != 2 or any(t.shape != sig.re.shape for t in (*sig, *noise)):
+        raise ValueError("sig and noise must be (NS, B) planes of one shape")
+    ns, b = sig.re.shape
+    if tuple(offs.shape) != (b,) or offs.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"offs: want ({b},) int32, got {tuple(offs.shape)} {offs.dtype}")
+    for t in (*sig, *noise, offs):
+        if t.device != sig.re.device:
+            raise ValueError(f"a tensor lies on {t.device}, sig on {sig.re.device}")
+    if bool(((offs < 0) | (offs >= ns)).any()):
+        raise ValueError(f"offs must lie in [0, {ns})")
+
+
+# -- the kernels --------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("detect")
+    lib.detect_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.detect_launch.restype = ctypes.c_int
+    lib.place_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.place_launch.restype = ctypes.c_int
+    lib.detect_error_string.argtypes = [ctypes.c_int]
+    lib.detect_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def detection_rows(b: int, device: torch.device) -> list:
+    """The kernels' (B,) detection outputs: det, coarse, start (int32),
+    metric (float32)."""
+    return [torch.empty(b, dtype=torch.int32, device=device) for _ in range(3)] + [
+        torch.empty(b, dtype=torch.float32, device=device)]
+
+
+def _launch_detect(x: Cplx, lts_ref: Cplx, threshold, search, advance, decimate,
+                   align: bool):
+    global launches
+    check_streams(x, lts_ref, search)
+    require_cuda(x.re)
+    stride, decimated = stride_of(decimate)
+    lib = _lib()
+    ns, b = x.re.shape
+    dev = x.re.device
+    rows = detection_rows(b, dev)
+    planes = [None] * 4
+    if align:
+        planes = [torch.empty((n, b), dtype=x.re.dtype, device=dev)
+                  for n in (C.PREAMBLE_SAMPLES,) * 2 + (C.PACKET_SAMPLES,) * 2]
+    ptrs = pointer_table([*x, *lts_ref, *rows, *planes])
+    with torch.cuda.device(dev):
+        err = lib.detect_launch(ptrs, len(ptrs), STORAGE[x.re.dtype], b, ns, float(threshold),
+                                int(search), int(advance), stride, decimated,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(err, "detect", lib.detect_error_string)
+    launches += 1
+    det, coarse, start, metric = rows
+    res = Detection(det != 0, coarse, start, metric)
+    if not align:
+        return res
+    return res, Cplx(planes[0], planes[1]), Cplx(planes[2], planes[3])
+
+
+def detect_streams(x: Cplx, lts_ref: Cplx, threshold: float = DEFAULT_THRESHOLD,
+                   search: int = 192, advance: int = 4, decimate=False) -> dict:
+    """Detection of lane-major (NS, B) streams against the (64,) float32 LTS
+    ``lts_ref``: a dict of (B,) tensors ``detected`` (bool), ``coarse`` and
+    ``start`` (int32, −1 where undetected) and ``metric`` (float32).  The
+    CUDA kernel for CUDA tensors, ``detect_plain`` for CPU tensors.
+
+    ``decimate`` evaluates the Schmidl & Cox metric every 16 (True), 32 or
+    64 samples only, exactly on that grid: ``coarse`` becomes
+    stride-granular, and the fine window, anchored one stride early,
+    widens by one stride."""
+    if x.re.device.type == "cpu":
+        return detect_plain(x, lts_ref, threshold, search, advance, decimate)._asdict()
+    return _launch_detect(x, lts_ref, threshold, search, advance, decimate, False)._asdict()
+
+
+def detect_and_align(x: Cplx, lts_ref: Cplx, threshold: float = DEFAULT_THRESHOLD,
+                     search: int = 192, advance: int = 4) -> tuple[dict, Cplx, Cplx]:
+    """Detection and alignment in one pass: (detection dict, preamble Cplx
+    (160, B), packet Cplx (1200, B)), the planes in the storage dtype, bit
+    for bit the stream's rows from ``start`` on (clipped to
+    [0, NS − 1360]; undetected streams are cut at row 0: gate on
+    ``detected``)."""
+    if x.re.device.type == "cpu":
+        det = detect_plain(x, lts_ref, threshold, search, advance)
+        lp, pkt = extract_lane_major(x, torch.where(det.detected, det.start, 0))
+        return det._asdict(), lp, pkt
+    det, lp, pkt = _launch_detect(x, lts_ref, threshold, search, advance, False, True)
+    return det._asdict(), lp, pkt
+
+
+def place_streams(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> Cplx:
+    """x[r, l] = sig[(r − offs[l]) mod NS, l] + noise[r, l] for lane-major
+    (NS, B) planes: each stream's frame placed at its offset in a noise
+    field.  ``offs`` (B,) lies in [0, NS).  The output has sig's dtype; the
+    sum is taken in float32.  The CUDA kernel for CUDA tensors,
+    ``place_plain`` for CPU tensors."""
+    if sig.re.device.type == "cpu":
+        return place_plain(sig, noise, offs)
+    return _launch_place(sig, noise, offs)
+
+
+def _launch_place(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> Cplx:
+    global place_launches
+    _check_place(sig, noise, offs)
+    require_cuda(sig.re)
+    for t in (*sig, *noise):
+        if not t.is_contiguous():
+            raise ValueError("sig and noise must be contiguous")
+    lib = _lib()
+    ns, b = sig.re.shape
+    dev = sig.re.device
+    out = Cplx(torch.empty_like(sig.re), torch.empty_like(sig.im))
+    offs = offs.to(torch.int32).contiguous()
+    ptrs = pointer_table([*sig, *noise, offs, *out])
+    with torch.cuda.device(dev):
+        err = lib.place_launch(ptrs, len(ptrs), STORAGE[sig.re.dtype], STORAGE[noise.re.dtype],
+                               ns, b, torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(err, "place", lib.detect_error_string)
+    place_launches += 1
+    return out

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -133,12 +134,7 @@ def quantize_i8(x: Cplx, lsb=None) -> tuple[Cplx, torch.Tensor]:
 
 
 def _check(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
-           consts: ChainConsts, equalize_with: str, sync: bool,
-           evm_sums: bool) -> None:
-    if sync or evm_sums:
-        raise NotImplementedError(
-            "the fused chain's sync (CFO/CPE) and evm_sums branches are not "
-            "ported yet (ROADMAP A4)")
+           consts: ChainConsts, equalize_with: str) -> None:
     if equalize_with not in EQUALIZE_WITH:
         raise ValueError(f"equalize_with must be one of {EQUALIZE_WITH}, "
                          f"got {equalize_with!r}")
@@ -184,19 +180,60 @@ def fused_chain(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
     """Run the fused chain: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns a dict: h_* Cplx (53, B) float32
     (None for the SERVE_DROP planes when ``serve``), eq Cplx (15, 53, B) in
-    the storage dtype (bfloat16 for int8), ow2/cfo/checksum (B,) float32.
+    the storage dtype (bfloat16 for int8), ow2/cfo/checksum (B,) float32,
+    and with ``evm_sums`` also evm_sums (B,) float32.
 
     ``eps``, ``lsb``: the rx samples are scaled by (1+eps)·lsb inside the
     chain (the tx side too in per-frame-tx mode, never in tx-constant
-    mode).  ``checksum`` sums, per frame, ow2 and every element of every h
-    plane and of eq, before eq is cast to its storage dtype."""
+    mode).  ``sync``: the Moose CFO is estimated from the scaled preamble
+    (``cfo``, cycles/sample) and removed from the preamble and from every
+    block before its DFT; each equalized block's pilot CPE is then
+    removed.  ``evm_sums``: per frame, Σ over blocks and bins of
+    |eq − tx|², from eq in float32 after CPE.  ``checksum`` sums, per
+    frame, ow2 and every element of every h plane and of eq, before eq is
+    cast to its storage dtype."""
     if rx_pkt.re.device.type == "cpu":
         return fused_chain_plain(rx_pkt, rx_lp, tx, consts, eps=eps, lsb=lsb, serve=serve,
                                  equalize_with=equalize_with, sync=sync, evm_sums=evm_sums)
-    _check(rx_pkt, rx_lp, tx, consts, equalize_with, sync, evm_sums)
+    _check(rx_pkt, rx_lp, tx, consts, equalize_with)
     require_cuda(rx_pkt.re)
     return _launch(rx_pkt, rx_lp, tx, consts, float(eps), float(lsb), serve,
-                   equalize_with)
+                   equalize_with, sync, evm_sums)
+
+
+def chain_outputs(b: int, device: torch.device, eq_dtype: torch.dtype, serve: bool,
+                  with_eq: bool, evm_sums: bool) -> tuple[dict, list]:
+    """Allocate the chain's outputs for ``b`` frames.  Returns the output
+    dict and the kernels' output pointer order: 7 h planes re/im (None
+    where ``serve`` drops them), eq re/im (None unless ``with_eq``), ow2,
+    cfo, checksum, evm_sums (None unless ``evm_sums``)."""
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    out = {name: None if serve and name in SERVE_DROP
+           else Cplx(empty(C.N_SC, b), empty(C.N_SC, b)) for name in OUT_NAMES}
+    out["eq"] = (Cplx(empty(C.N_BLOCKS, C.N_SC, b, dtype=eq_dtype),
+                      empty(C.N_BLOCKS, C.N_SC, b, dtype=eq_dtype)) if with_eq else None)
+    out.update(ow2=empty(b), cfo=empty(b), checksum=empty(b))
+    if evm_sums:
+        out["evm_sums"] = empty(b)
+    tensors = []
+    for name in (*OUT_NAMES, "eq"):
+        tensors += [None, None] if out[name] is None else list(out[name])
+    tensors += [out["ow2"], out["cfo"], out["checksum"], out.get("evm_sums")]
+    return out, tensors
+
+
+def pointer_table(tensors: list):
+    """A ctypes array of the tensors' device pointers (None → null)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
+
+
+def raise_on_error(err: int, what: str, err_string) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({err_string(err).decode()})")
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,7 +242,7 @@ def _kernel_fn():
     fn = lib.fused_chain_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err_string = lib.fused_chain_error_string
     err_string.argtypes = [ctypes.c_int]
@@ -215,40 +252,36 @@ def _kernel_fn():
 
 def _launch(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
             consts: ChainConsts, eps: float, lsb: float, serve: bool,
-            equalize_with: str) -> dict:
+            equalize_with: str, sync: bool, evm_sums: bool) -> dict:
     global launches
     fn, err_string = _kernel_fn()
     dev = rx_pkt.re.device
     b = rx_pkt.re.shape[-1]
     storage = rx_pkt.re.dtype
     eq_dtype = torch.bfloat16 if storage == torch.int8 else storage
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    out = {name: None if serve and name in SERVE_DROP
-           else Cplx(empty(C.N_SC, b), empty(C.N_SC, b)) for name in OUT_NAMES}
-    eq = Cplx(empty(C.N_BLOCKS, C.N_SC, b, dtype=eq_dtype),
-              empty(C.N_BLOCKS, C.N_SC, b, dtype=eq_dtype))
-    ow2, chk = empty(b), empty(b)
+    out, outs = chain_outputs(b, dev, eq_dtype, serve, True, evm_sums)
     tx_a, tx_b = tx
-    tensors = [*rx_pkt, *rx_lp, *tx_a, *tx_b, *consts]
-    for name in OUT_NAMES:
-        tensors += [None, None] if out[name] is None else list(out[name])
-    tensors += [*eq, ow2, chk]
-    ptrs = (ctypes.c_void_p * len(tensors))(
-        *(None if t is None else t.data_ptr() for t in tensors))
+    ptrs = pointer_table([*rx_pkt, *rx_lp, *tx_a, *tx_b, *consts, *outs])
     with torch.cuda.device(dev):
-        err = fn(ptrs, len(tensors), _STORAGE[storage], isinstance(tx, TxConst),
-                 EQUALIZE_WITH.index(equalize_with), b, eps, lsb,
+        err = fn(ptrs, len(ptrs), _STORAGE[storage], isinstance(tx, TxConst),
+                 EQUALIZE_WITH.index(equalize_with), b, eps, lsb, sync, evm_sums,
                  torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_chain kernel launch failed: CUDA error {err} "
-                           f"({err_string(err).decode()})")
+    raise_on_error(err, "fused_chain", err_string)
     launches += 1
-    out.update(eq=eq, ow2=ow2, cfo=torch.zeros(b, dtype=torch.float32, device=dev),
-               checksum=chk)
     return out
+
+
+_TWO_PI = 2.0 * math.pi
+
+
+def _derotate(x: Cplx, cfo: torch.Tensor, t: torch.Tensor) -> Cplx:
+    """f32 planes (…, B) times exp(−2πi·cfo·t), ``t`` broadcasting against
+    the sample rows: the angle ((−2π)·cfo)·t in float32, its cos and sin
+    taken in float64 and rounded to float32 (correctly rounded, as the
+    kernel rounds them, so the derotated samples agree bit for bit)."""
+    ang = (((-_TWO_PI) * cfo) * t).to(torch.float64)
+    c, s = torch.cos(ang).to(torch.float32), torch.sin(ang).to(torch.float32)
+    return Cplx(x.re * c - x.im * s, x.re * s + x.im * c)
 
 
 def fused_chain_plain(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
@@ -257,14 +290,16 @@ def fused_chain_plain(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
                       sync: bool = False, evm_sums: bool = False) -> dict:
     """`fused_chain` in plain PyTorch, on any device, with the kernel's
     rounding points: with bf16 or int8 storage the DFT operands are rounded
-    to bf16 (twiddles and the LTS average) and then multiplied in f32, so
-    every product is exact and only the summation order differs."""
-    _check(rx_pkt, rx_lp, tx, consts, equalize_with, sync, evm_sums)
+    to bf16 (twiddles, the LTS average and, with ``sync``, each derotated
+    block) and then multiplied in f32, so every product is exact and only
+    the summation order differs."""
+    _check(rx_pkt, rx_lp, tx, consts, equalize_with)
     f32 = torch.float32
     dev = rx_pkt.re.device
     storage = rx_pkt.re.dtype
     eq_dtype = torch.bfloat16 if storage == torch.int8 else storage
     bf16_ops = storage != f32
+    nblk = C.N_BLOCKS
 
     def ops(x):
         """The DFT operand rounding point (a no-op on bf16/int8 samples)."""
@@ -280,32 +315,49 @@ def fused_chain_plain(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
         """(…, 64, B) operands → (…, 53, B) f32 spectrum."""
         return wrT @ xr - wiT @ xi, wrT @ xi + wiT @ xr
 
-    def preamble(lp: Cplx):
-        r = lp.map(lambda x: x.to(f32) * scale)
-        avg = Cplx(ops((r.re[32:96] + r.re[96:160]) * 0.5),
+    def preamble_spectrum(r: Cplx):
+        """The LTS average of scaled f32 preamble planes, rounded, DFT'd."""
+        return dft(ops((r.re[32:96] + r.re[96:160]) * 0.5),
                    ops((r.im[32:96] + r.im[96:160]) * 0.5))
-        return r, dft(*avg)
 
-    def blocks(pkt: Cplx, nblk: int):
-        """Spectra of the first ``nblk`` blocks, (nblk, 53, B)."""
-        win = pkt.map(lambda x: ops(
-            x[:nblk * C.SAMP_PER_BLOCK].view(nblk, C.SAMP_PER_BLOCK, -1)[:, C.N_CP:]))
-        yr, yi = dft(*win)
+    def blocks(pkt: Cplx, n: int, cfo=None):
+        """Spectra of the first ``n`` blocks, (n, 53, B); with ``cfo`` each
+        block is derotated (t = 160 + b·80 + 16 + i) before the rounding."""
+        win = pkt.map(lambda x: x[:n * C.SAMP_PER_BLOCK].view(
+            n, C.SAMP_PER_BLOCK, -1)[:, C.N_CP:].to(f32))
+        if cfo is not None:
+            t = (C.PREAMBLE_SAMPLES + C.N_CP
+                 + C.SAMP_PER_BLOCK * torch.arange(n, dtype=f32, device=dev)[:, None, None]
+                 + torch.arange(C.N_FFT, dtype=f32, device=dev)[None, :, None])
+            win = _derotate(win, cfo, t)
+        yr, yi = dft(ops(win.re), ops(win.im))
         return yr * scale, yi * scale
 
-    lp, (rpre_r, rpre_i) = preamble(rx_lp)
+    lp = rx_lp.map(lambda x: x.to(f32) * scale)
+    cfo = None
+    if sync:
+        # Moose: c = Σ conj(r1)·r2 over the scaled LTS repeats, in float64
+        # (exact products), the estimate rounded to float32 once
+        r1r, r1i, r2r, r2i = (v.to(torch.float64) for v in (
+            lp.re[32:96], lp.im[32:96], lp.re[96:160], lp.im[96:160]))
+        cr = (r1r * r2r + r1i * r2i).sum(0)
+        ci = (r1r * r2i - r1i * r2r).sum(0)
+        cfo = (torch.atan2(ci, cr) / (_TWO_PI * C.N_FFT)).to(f32)
+        lp = _derotate(lp, cfo, torch.arange(C.PREAMBLE_SAMPLES, dtype=f32, device=dev)[:, None])
+    rpre_r, rpre_i = preamble_spectrum(lp)
     dr = lp.re[32:96] - lp.re[96:160]
     di = lp.im[32:96] - lp.im[96:160]
     ow2 = (dr * dr + di * di).sum(0) / (2.0 * C.N_FFT)
-    rbr, rbi = blocks(rx_pkt, C.N_BLOCKS)
+    rbr, rbi = blocks(rx_pkt, nblk, cfo)
     if isinstance(tx, TxConst):
         tpr, tpi = tx.tpre
-        tbr = tx.txs.re[:, :C.N_BLOCKS].T[:, :, None]   # (15, 53, 1)
-        tbi = tx.txs.im[:, :C.N_BLOCKS].T[:, :, None]
+        tbr = tx.txs.re[:, :nblk].T[:, :, None]   # (15, 53, 1)
+        tbi = tx.txs.im[:, :nblk].T[:, :, None]
     else:
-        _, (tpr, tpi) = preamble(tx.lp)
-        # only blocks 0..3 of the tx side feed the estimators
-        tbr, tbi = blocks(tx.pkt, C.N_AVG_BLOCKS)
+        tpr, tpi = preamble_spectrum(tx.lp.map(lambda x: x.to(f32) * scale))
+        # the estimators read blocks 0..3 of the tx side; CPE and the EVM
+        # read the tx spectra of all 15
+        tbr, tbi = blocks(tx.pkt, nblk if sync or evm_sums else C.N_AVG_BLOCKS)
     dc = (torch.arange(C.N_SC, device=dev) == C.DC_IDX)[:, None]
 
     def cdiv(ar, ai, br, bi):
@@ -351,20 +403,36 @@ def fused_chain_plain(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
 
     # -- equalize: blend weights (b+1)/15 and (14−b)/15, DC to zero --
     hps_r, hps_i = planes[equalize_with]
-    n = C.N_BLOCKS
-    w_ps = torch.tensor([(b + 1) / n for b in range(n)], dtype=f32, device=dev)[:, None, None]
-    w_lt = torch.tensor([(n - (b + 1)) / n for b in range(n)], dtype=f32, device=dev)[:, None, None]
+    w_ps = torch.tensor([(b + 1) / nblk for b in range(nblk)], dtype=f32, device=dev)[:, None, None]
+    w_lt = torch.tensor([(nblk - (b + 1)) / nblk for b in range(nblk)], dtype=f32,
+                        device=dev)[:, None, None]
     hur = torch.where(dc, 1.0, w_lt * hlt_r + w_ps * hps_r)
     hui = torch.where(dc, 0.0, w_lt * hlt_i + w_ps * hps_i)
     er, ei = cdiv(rbr, rbi, hur, hui)
     er = torch.where(dc, 0.0, er)
     ei = torch.where(dc, 0.0, ei)
+    if sync:
+        # per-block pilot CPE: g = Σ_p eq[p]·conj(tx[p]) in pilot order;
+        # rotate by conj(g)/|g|, with |g| = 0 taken as 1
+        gr = gi = 0.0
+        for q in p:
+            zr, zi, tr, ti = er[:, q], ei[:, q], tbr[:, q], tbi[:, q]
+            gr = gr + (zr * tr + zi * ti)
+            gi = gi + (zi * tr - zr * ti)
+        mag = torch.sqrt(gr * gr + gi * gi)
+        mag = torch.where(mag == 0.0, 1.0, mag)
+        rr, ri = (gr / mag)[:, None], (-gi / mag)[:, None]
+        er, ei = er * rr - ei * ri, er * ri + ei * rr
     chk = chk + (er + ei).sum((0, 1))
 
     out = {name: None if serve and name in SERVE_DROP else Cplx(*planes[name])
            for name in OUT_NAMES}
     out.update(eq=Cplx(er.to(eq_dtype), ei.to(eq_dtype)), ow2=ow2,
-               cfo=torch.zeros_like(ow2), checksum=chk)
+               cfo=torch.zeros_like(ow2) if cfo is None else cfo, checksum=chk)
+    if evm_sums:
+        # the DC rows of eq are 0; tx's DC row enters as it is
+        d_r, d_i = er - tbr[:nblk], ei - tbi[:nblk]
+        out["evm_sums"] = (d_r * d_r + d_i * d_i).sum((0, 1))
     return out
 
 

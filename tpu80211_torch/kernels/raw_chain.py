@@ -1,0 +1,132 @@
+"""The one-kernel raw-stream receiver: raw streams in, estimates out.
+
+The counterpart of ``tpu80211/kernels/raw_chain.py``.  One hand-written
+CUDA kernel (``csrc/raw_chain.cu``) runs, per block of 32 streams, the
+detection of ``detect_kernel`` and then the tx-constant chain of
+``fused_chain``, reading each stream's preamble and packet straight from
+the raw (NS, B) buffer at its detected start: no aligned copy goes through
+device memory.  ``raw_chain_plain`` is the same function in plain PyTorch
+(plain detection, ``extract_lane_major``, ``fused_chain_plain``); the
+wrapper runs it for CPU tensors only, and a CUDA tensor launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tpu80211_torch import constants as C
+from tpu80211_torch.cplx import Cplx
+from tpu80211_torch.kernels import _build, require_cuda
+from tpu80211_torch.kernels import detect_kernel as D
+from tpu80211_torch.kernels import fused_chain as F
+
+# kernel launches since the count was last set to 0 (the plain version
+# never counts)
+launches = 0
+
+
+def _check_tx(x: Cplx, txs: Cplx, tpre: Cplx, equalize_with: str) -> None:
+    if equalize_with not in F.EQUALIZE_WITH:
+        raise ValueError(f"equalize_with must be one of {F.EQUALIZE_WITH}, "
+                         f"got {equalize_with!r}")
+    for name, c, shape in (("txs", txs, (C.N_SC, F.NB_PAD)), ("tpre", tpre, (C.N_SC, 1))):
+        for t in c:
+            if tuple(t.shape) != shape or t.dtype != torch.float32:
+                raise ValueError(f"{name}: want {shape} float32, got {tuple(t.shape)} {t.dtype}")
+            if t.device != x.re.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on {x.re.device}")
+
+
+def raw_chain_plain(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx,
+                    threshold: float | None = None, search: int = 192, advance: int = 4,
+                    eps=0.0, sync: bool = False, serve: bool = False,
+                    wiener_model: str | None = None, wiener_snr_db: float | None = None,
+                    lsb=1.0, stream_sums: bool = False, equalize_with: str = "h_linear",
+                    decimate=True) -> dict:
+    """`raw_rx_txconst_fused` in plain PyTorch, on any device: the plain
+    detection, the frame rows cut at each start, then the plain chain with
+    the EVM sums taken from eq in float32 (``stream_sums``)."""
+    thr = D.DEFAULT_THRESHOLD if threshold is None else threshold
+    _check_tx(x, txs, tpre, equalize_with)
+    det = D.detect_plain(x, lts_ref, thr, search, advance, decimate)
+    lp, pkt = D.extract_lane_major(x, torch.where(det.detected, det.start, 0))
+    consts = F.chain_consts(x.re.device, wiener_model, wiener_snr_db)
+    out = F.fused_chain_plain(pkt, lp, F.TxConst(txs, tpre), consts, eps=eps, lsb=lsb,
+                              serve=serve, equalize_with=equalize_with, sync=sync,
+                              evm_sums=stream_sums)
+    if stream_sums:
+        out["eq"] = None
+    out.update(detected=det.detected, start=det.start, metric=det.metric)
+    return out
+
+
+def raw_rx_txconst_fused(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx,
+                         threshold: float | None = None, search: int = 192, advance: int = 4,
+                         eps=0.0, sync: bool = False, serve: bool = False,
+                         wiener_model: str | None = None, wiener_snr_db: float | None = None,
+                         lsb=1.0, stream_sums: bool = False, equalize_with: str = "h_linear",
+                         decimate=True) -> dict:
+    """The raw receiver: lane-major (NS, B) streams (float32, bfloat16, or
+    int8 ADC words with ``lsb`` their step) → `fused_chain`'s output dict
+    plus ``detected``/``start``/``metric`` rows.  ``lts_ref``: the (64,)
+    float32 LTS; ``txs``/``tpre``: the tx-constant spectra.
+
+    ``stream_sums=True`` is the streaming configuration: ``evm_sums`` (B,)
+    holds each stream's Σ|eq − tx|² and ``eq`` is None (never written).
+    ``decimate`` sets the Schmidl & Cox stride (True → 16; 32, 64; False =
+    full resolution); ``serve`` drops the diagnostic planes.  The CUDA
+    kernel for CUDA tensors, ``raw_chain_plain`` for CPU tensors."""
+    kw = dict(threshold=threshold, search=search, advance=advance, eps=eps, sync=sync,
+              serve=serve, wiener_model=wiener_model, wiener_snr_db=wiener_snr_db, lsb=lsb,
+              stream_sums=stream_sums, equalize_with=equalize_with, decimate=decimate)
+    if x.re.device.type == "cpu":
+        return raw_chain_plain(x, lts_ref, txs, tpre, **kw)
+    return _launch(x, lts_ref, txs, tpre, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    lib = _build.load("raw_chain")
+    fn = lib.raw_chain_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err_string = lib.raw_chain_error_string
+    err_string.argtypes = [ctypes.c_int]
+    err_string.restype = ctypes.c_char_p
+    return fn, err_string
+
+
+def _launch(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx, threshold, search, advance, eps,
+            sync, serve, wiener_model, wiener_snr_db, lsb, stream_sums, equalize_with,
+            decimate) -> dict:
+    global launches
+    thr = D.DEFAULT_THRESHOLD if threshold is None else threshold
+    D.check_streams(x, lts_ref, search)
+    _check_tx(x, txs, tpre, equalize_with)
+    require_cuda(x.re)
+    stride, decimated = D.stride_of(decimate)
+    fn, err_string = _kernel_fn()
+    ns, b = x.re.shape
+    dev = x.re.device
+    storage = x.re.dtype
+    eq_dtype = torch.bfloat16 if storage == torch.int8 else storage
+    consts = F.chain_consts(dev, wiener_model, wiener_snr_db)
+    out, outs = F.chain_outputs(b, dev, eq_dtype, serve, not stream_sums, stream_sums)
+    rows = D.detection_rows(b, dev)
+    ptrs = F.pointer_table([*x, *lts_ref, *txs, *tpre, *consts, *outs, *rows])
+    with torch.cuda.device(dev):
+        err = fn(ptrs, len(ptrs), D.STORAGE[storage], F.EQUALIZE_WITH.index(equalize_with),
+                 b, ns, float(eps), float(lsb), sync, stream_sums, float(thr), int(search),
+                 int(advance), stride, decimated, torch.cuda.current_stream(dev).cuda_stream)
+    F.raise_on_error(err, "raw_chain", err_string)
+    launches += 1
+    det, _, start, metric = rows
+    out.update(detected=det != 0, start=start, metric=metric)
+    return out

@@ -15,7 +15,7 @@ import torch
 
 from tpu80211_torch import constants as C
 from tpu80211_torch.config import EstimatorMode
-from tpu80211_torch.ops import specmats
+from tpu80211_torch.ops import cfo, specmats
 from tpu80211_torch.ops.interp import interp_matrix
 
 _PILOTS = list(C.PILOT_IDX)
@@ -192,17 +192,24 @@ def rx_chain(
     """The full WiFi_RX.m chain, batched: time-domain samples → estimates →
     equalized symbols.  ``equalize_with`` names the PS estimate blended
     into the equalizer CFR; the golden model fixes PS-Linear
-    (WiFi_RX.m:60)."""
+    (WiFi_RX.m:60).
+
+    ``sync=True`` adds the synchronization stages of ``ops/cfo.py``: the
+    Moose CFO is removed from both rx streams before the front end (so σ²
+    and the LTS average come from the corrected preamble), and each
+    equalized block's pilot CPE is removed after equalization."""
     if sync:
-        raise NotImplementedError(
-            "rx_chain(sync=True) needs the CFO/CPE stages of ops/cfo.py, "
-            "which are not ported yet (ROADMAP A4)")
-    return rx_chain_freq(
+        rx_packet, rx_lptot, _ = cfo.correct_cfo(rx_packet, rx_lptot)
+    tx_blocks = extract_blocks(tx_packet)
+    out = rx_chain_freq(
         preamble_fft(tx_lptot), preamble_fft(rx_lptot),
-        extract_blocks(tx_packet), extract_blocks(rx_packet),
+        tx_blocks, extract_blocks(rx_packet),
         noise_power(rx_lptot),
         avg_blocks=avg_blocks, equalize_with=equalize_with,
     )
+    if sync:
+        out = out._replace(eq=cfo.cpe_correct(out.eq, tx_blocks))
+    return out
 
 
 def rx_chain_freq(
