@@ -28,30 +28,50 @@ nvcc per source, all started together), then:
    [-4, -2], finite checksum, EVM) and a 1024-stream slice against the
    plain version;
 6. times the raw receiver, detection, placement and the synced chain
-   against their plain versions.
+   against their plain versions;
+2c. (run after 2b) holds the generative kernels against their plain
+   versions at B=1024: ``fused_gen_chain`` in full and stream mode
+   (channel models None and 'A', SNR 20 and 35; the stream record against
+   the full run), ``gen_raw_system`` with and without a 40 kHz CFO;
+7. runs the generative path at full width, B=32768 (scripts/bench_stream.py
+   and bench.py --genraw): ``fused_gen_chain`` in stream mode (SNR 20) and
+   in full (SNR 35, NMSE and sigma^2 gates, its first 1024 frames against
+   the plain version at B=1024), ``gen_raw_system`` x NS=2048 (bench.py's
+   gates; a 40 kHz CFO recovered), and ``run_stream_device`` for 4 batches
+   with each of the four generators, plus a bit-identical resume;
+8. times ``fused_gen_chain``, ``gen_raw_system`` and one stream step per
+   generator, kernel and plain version in turns.
 
 Every failed check raises, so the script exits non-zero.  The last two
-lines are JSON: the kernel table, then the device summary.
+lines are JSON: the kernel table (each kernel's launches on its path, max
+abs error, card and plain ms, and its bound: bytes over 3.35 TB/s or
+operations over 67 T/s, whichever is larger), then the device summary.
 """
 
 from __future__ import annotations
 
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from tpu80211_torch.cplx import Cplx
+from tpu80211_torch.datasets import synthetic_sc as SC
 from tpu80211_torch.datasets.loader import load_capture
 from tpu80211_torch.kernels import _build
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
+from tpu80211_torch.kernels import gen_chain as G
 from tpu80211_torch.kernels import raw_chain as R
+from tpu80211_torch.kernels import raw_gen_chain as RG
 from tpu80211_torch.pipeline import raw as P
+from tpu80211_torch.pipeline import stream as S
 
 SEED = 0
 B_SMALL = 1000      # ragged: not a multiple of the kernel's 32 frames
@@ -68,7 +88,15 @@ B_RAW = 32768       # raw streams per step (bench.py:261)
 N_EMPTY = 40        # noise-only streams in phase 2b
 NOISE = 1e-4        # AWGN per plane on the raw streams (bench.py:216)
 EPS_CFO = 1e-3      # 20 kHz at 20 MS/s, in cycles/sample
-KERNELS = ("fused_chain", "detect", "raw_chain")
+B_GEN = 32768       # generative batch (scripts/bench_stream.py, bench.py --genraw)
+B_GEN_SMALL = 1024  # phase 2c, and the plain version's slice of phase 7
+GEN_SEED = 7        # bench.py's generative seed
+N_STREAM = 4        # stream batches per generator in phase 7
+KERNELS = ("fused_chain", "detect", "raw_chain", "gen_chain", "raw_gen_chain")
+# the bound: the larger of bytes over the HBM rate and operations over the
+# f32 rate outside the tensor cores (NVIDIA's H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def check(ok: bool, msg: str) -> None:
@@ -577,11 +605,398 @@ def phase_timing(pk: Cplx, lp: Cplx, txc, dev) -> tuple[float, float]:
     # plain, kernel, kernel, plain: compare within one call, in turns
     p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
     k_ms, p_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
+    # the same kernel with per-frame tx (the JAX package's _fused_call) at
+    # bench.py's B=32768: the rx frames stand in for the tx frames
+    pk2, lp2 = (c.map(lambda t: t[:, :B_RAW].contiguous()) for c in (pk, lp))
+    tx = F.TxFrames(pk2, lp2)
+    f_ms, f_plain = in_turns(lambda: F.fused_chain(pk2, lp2, tx, consts),
+                             lambda: F.fused_chain_plain(pk2, lp2, tx, consts))
+    out = F.fused_chain(pk2, lp2, tx, consts)
+    f_bound = bound(B_RAW * (2 * DFT_OPS + CHAIN_OPS), nbytes(pk2, lp2, tx, consts, out))
     torch.cuda.synchronize()
     print(f"phase 4: B={B_MAIN} bf16 tx-constant: kernel {k_ms:.4f} ms ({k1:.4f}, {k2:.4f}) "
           f"= {B_MAIN / k_ms * 1e3:.4g} frames/s; plain {p_ms:.4f} ms ({p1:.4f}, {p2:.4f}) "
           f"= {B_MAIN / p_ms * 1e3:.4g} frames/s")
+    print(f"phase 4: B={B_RAW} bf16 per-frame tx: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, "
+          f"bound {f_bound[0]:.4f} ms ({f_bound[1]})")
     return k_ms, p_ms
+
+
+# -- the generative path (phases 2c, 7, 8) ---------------------------------------------------
+
+# eq of fused_gen_chain at tests/_torch_inputs.py::TOL's entry for its type; the
+# h planes and h_true at the f32 entries (1e-5, h_mmse 1e-3): both versions
+# compute in f32 on bit-equal normals, only the sums over bins run in another
+# order, and a bf16 eq element can flip one rounding (2⁻⁸)
+GEN_EQ_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# stream SNRs: the JAX package's stream tests (tests/test_stream.py:42,92)
+STREAM_SNR = {"kernel": 35.0, "xla": 35.0, "raw": 30.0, "kernel_raw": 30.0}
+
+
+def compare_gen(tag: str, got: dict, want: dict, eq_tol: float,
+                frames: slice = slice(None)) -> float:
+    """fused_gen_chain's outputs against the plain version's; returns the
+    max abs error over the h planes, h_true and eq."""
+    max_abs = 0.0
+    for name in (*F.OUT_NAMES, "h_true", "eq"):
+        g, w = as_complex(got[name])[..., frames], as_complex(want[name])
+        check(g.shape == w.shape, f"{tag}: {name} shape {tuple(g.shape)} vs {tuple(w.shape)}")
+        tol = eq_tol if name == "eq" else 1e-3 if name == "h_mmse" else 1e-5
+        err = rel(g, w)
+        check(err <= tol, f"{tag}: {name} rel err {err:.3g} > {tol}")
+        max_abs = max(max_abs, float((g - w).abs().max()))
+    g, w = got["ow2"][frames].double(), want["ow2"].double()
+    check(bool(((g - w).abs() <= 1e-4 * w.abs()).all()), f"{tag}: ow2")
+    err = rel(got["checksum"][frames], want["checksum"])
+    check(err <= 1e-4, f"{tag}: checksum rel err {err:.3g}")
+    if "sums" in want:
+        # per-lane Σ|ĥ − h|² over 53 bins per frame, f32 in another order
+        err = rel(got["sums"], want["sums"])
+        check(err <= 1e-5, f"{tag}: sums rel err {err:.3g}")
+    return max_abs
+
+
+def check_stream_record(tag: str, st: dict, full: dict) -> None:
+    """The stream configuration against the full run of the same draws: the
+    sums equal those recomputed from the full planes, the checksum is the
+    same bits, and every plane is the full run's last 128 frames exactly."""
+    h = as_complex(full["h_true"])
+    per_frame = torch.stack([(as_complex(full[n]) - h).abs().square().sum(0)
+                             for n in F.OUT_NAMES] + [h.abs().square().sum(0)])
+    err = rel(st["sums"], per_frame.view(G.N_SUMS, -1, G.LANES).sum(1))
+    check(err <= 1e-5, f"{tag}: sums vs the full run rel err {err:.3g}")
+    check(torch.equal(st["checksum"], full["checksum"]), f"{tag}: checksum differs from the full run")
+    for name in (*F.OUT_NAMES, "h_true", "eq"):
+        for a, b in zip(st[name], full[name]):
+            check(torch.equal(a, b[..., -G.LANES:]), f"{tag}: {name} is not the last 128 frames")
+    check(torch.equal(st["ow2"], full["ow2"][-G.LANES:]), f"{tag}: ow2 is not the last 128 frames")
+
+
+def compare_raw_gen(tag: str, got: dict, want: dict, frames: slice = slice(None)) -> float:
+    """gen_raw_system against the plain version: the synthesis is bit-equal,
+    so offsets, the true CFO and the detection rows are exact and h_true
+    agrees to f64 summation order (1e-6); the chain's outputs at the bf16
+    tolerances of phase 2b.  The checksum and the EVM sums: 1e-3 of the
+    largest, since on a deep fade the blended equalizer divides by a near
+    cancellation and amplifies f32 order differences (6.1e-5 and 6.8e-5
+    measured at B=1024, SNR 20).  Returns the max abs error of the h
+    planes."""
+    for k in ("detected", "start", "offsets", "cfo_true"):
+        check(torch.equal(got[k][frames], want[k]), f"{tag}: {k} differs from the plain version")
+    m = got["metric"][frames]
+    err = float(((m - want["metric"]).abs() / want["metric"].abs().clamp_min(1e-30)).max())
+    check(err <= 1e-5, f"{tag}: metric rel err {err:.3g}")
+    err = rel(as_complex(got["h_true"])[..., frames], as_complex(want["h_true"]))
+    check(err <= 1e-6, f"{tag}: h_true rel err {err:.3g}")
+    max_abs = 0.0
+    for name, tol in (("h_wiener", 1e-4), ("h_mmse", 1e-3)):
+        g, w = as_complex(got[name])[..., frames], as_complex(want[name])
+        err = rel(g, w)
+        check(err <= tol, f"{tag}: {name} rel err {err:.3g} > {tol}")
+        max_abs = max(max_abs, float((g - w).abs().max()))
+    g, w = got["ow2"][frames].double(), want["ow2"].double()
+    check(bool(((g - w).abs() <= 1e-4 * w.abs()).all()), f"{tag}: ow2")
+    err = float((got["cfo"][frames] - want["cfo"]).abs().max())
+    check(err <= 1e-6, f"{tag}: cfo abs err {err:.3g}")
+    for k in ("checksum", "evm_sums"):
+        err = rel(got[k][frames], want[k])
+        check(err <= 1e-3, f"{tag}: {k} rel err {err:.3g}")
+    return max_abs
+
+
+def phase_small_gen(cap, dev) -> dict:
+    """2c: the generative kernels against their plain versions at B=1024;
+    returns their max abs errors."""
+    txc, lts = capture_spectra(cap, dev), lts_planes(cap, dev)
+    errs = {"gen_chain": 0.0, "raw_gen_chain": 0.0}
+    cases = [(model, snr, eq) for model in (None, "A") for snr in (20.0, 35.0)
+             for eq in (torch.bfloat16,)] + [(None, 20.0, torch.float32)]
+    for i, (model, snr, eq_dtype) in enumerate(cases):
+        kw = dict(snr_db=snr, eq_dtype=eq_dtype, channel_model=model)
+        tag = f"gen {model} snr {snr} {eq_dtype}"
+        full = G.fused_gen_chain(SEED + i, B_GEN_SMALL, *txc, **kw)
+        want = G.gen_chain_plain(SEED + i, B_GEN_SMALL, *txc, **kw)
+        errs["gen_chain"] = max(errs["gen_chain"],
+                                compare_gen(tag, full, want, GEN_EQ_TOL[eq_dtype]))
+        st = G.fused_gen_chain(SEED + i, B_GEN_SMALL, *txc, stream_sums=True, **kw)
+        compare_gen(tag + " stream", st,
+                    G.gen_chain_plain(SEED + i, B_GEN_SMALL, *txc, stream_sums=True, **kw),
+                    GEN_EQ_TOL[eq_dtype])
+        check_stream_record(tag, st, full)
+    for kw in (dict(), dict(cfo_khz=40.0, equalize_with="h_mmse"),
+               dict(channel_model="A", snr_db=35.0, equalize_with="h_wiener")):
+        got = RG.gen_raw_system(SEED + 5, B_GEN_SMALL, *txc, lts, **kw)
+        want = RG.gen_raw_plain(SEED + 5, B_GEN_SMALL, *txc, lts, **kw)
+        errs["raw_gen_chain"] = max(errs["raw_gen_chain"], compare_raw_gen(f"raw gen {kw}", got, want))
+    torch.cuda.synchronize()
+    print(f"phase 2c ok: fused_gen_chain == plain at B={B_GEN_SMALL} ({len(cases)} cases, full and "
+          "stream; the stream record == the full run's), gen_raw_system == plain (3 cases, "
+          "40 kHz CFO included; offsets and detection exact)")
+    return errs
+
+
+def nmse_db(est: Cplx, h: Cplx) -> float:
+    e, t = as_complex(est), as_complex(h)
+    return float(10 * torch.log10((e - t).abs().square().sum() / t.abs().square().sum()))
+
+
+def raw_gen_gates(tag: str, out: dict, evm_den: float, in_band_min: float,
+                  evm_max: float) -> tuple[float, float]:
+    """bench.py:355-365's gates on a gen_raw_system run: every stream
+    detected, start − offset in [−4, −2] for ``in_band_min`` of them, the
+    detected streams' EVM rms below ``evm_max``, a finite checksum.
+    Returns (in-band rate, EVM)."""
+    det = out["detected"]
+    check(bool(det.all()), f"{tag}: missed {int((~det).sum())} streams")
+    err = out["start"].long() - out["offsets"].long()
+    in_band = float(((err >= -4) & (err <= -2)).double().mean())
+    check(in_band >= in_band_min, f"{tag}: timing in band for {in_band:.4f} < {in_band_min}")
+    check(bool(torch.isfinite(out["checksum"]).all()), f"{tag}: checksum not finite")
+    evm = float(torch.sqrt(out["evm_sums"][det].double().mean() / evm_den))
+    check(evm < evm_max, f"{tag}: evm_rms {evm:.4f} >= {evm_max}")
+    return in_band, evm
+
+
+def read_stream(out_dir: pathlib.Path, n: int) -> list[dict]:
+    return [dict(np.load(out_dir / f"stream_{i:06d}.npz")) for i in range(n)]
+
+
+def check_stream_summaries(gen: str, records: list[dict]) -> None:
+    """Every batch's summary finite, inside the JAX package's stream test
+    bounds (tests/test_stream.py:52-55, 94-98) and bench.py's timing gate."""
+    for i, rec in enumerate(records):
+        for k, v in rec.items():
+            check(bool(np.isfinite(v).all()), f"stream {gen} batch {i}: {k} not finite")
+        if gen in ("kernel", "xla"):
+            for k, bound in (("h_lt_nmse", 0.1), ("h_mmse_nmse", 0.1), ("h_wiener_nmse", 0.5)):
+                check(float(rec[k]) < bound, f"stream {gen} batch {i}: {k} = {float(rec[k])}")
+        else:
+            check(float(rec["detect_rate"]) == 1.0, f"stream {gen} batch {i}: detect_rate")
+            check(float(rec["timing_in_band_rate"]) >= 0.85,
+                  f"stream {gen} batch {i}: timing_in_band_rate {float(rec['timing_in_band_rate'])}")
+            check(float(rec["h_mmse_mag_nmse"]) < 0.1, f"stream {gen} batch {i}: h_mmse_mag_nmse")
+
+
+def check_resume(tmp: pathlib.Path, gen: str, dev) -> None:
+    """A stream resumed after 2 of 4 batches writes batches 2 and 3 bit for
+    bit as an uninterrupted run does (B=1024)."""
+    kw = dict(batch=B_GEN_SMALL, seed=GEN_SEED, snr_db=STREAM_SNR[gen], sample=8, gen=gen,
+              device=dev)
+    a, b = tmp / f"whole_{gen}", tmp / f"resumed_{gen}"
+    S.run_stream_device(4, out_dir=str(a), **kw)
+    S.run_stream_device(2, out_dir=str(b), **kw)
+    again = S.run_stream_device(4, out_dir=str(b), **kw)
+    check(again["frames"] == 2 * B_GEN_SMALL, f"resume {gen}: ran {again['frames']} frames")
+    for i, (x, y) in enumerate(zip(read_stream(a, 4), read_stream(b, 4))):
+        for k in x:
+            check(np.array_equal(x[k], y[k], equal_nan=True), f"resume {gen}: batch {i} {k} differs")
+    cur = [json.loads((d / "cursor.json").read_text()) for d in (a, b)]
+    check(cur[0] == cur[1], f"resume {gen}: cursors differ")
+
+
+def phase_gen(cap, dev):
+    """7: the generative path at full width; returns (launches by kernel,
+    max abs errors, inputs for phase 8)."""
+    txc, lts = capture_spectra(cap, dev), lts_planes(cap, dev)
+    evm_den = float((txc.txs.re[:, :15].double() ** 2 + txc.txs.im[:, :15].double() ** 2).sum())
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        F.launches = D.launches = D.place_launches = R.launches = G.launches = RG.launches = 0
+        st = G.fused_gen_chain(GEN_SEED, B_GEN, *txc, snr_db=20.0, stream_sums=True)
+        full = G.fused_gen_chain(GEN_SEED, B_GEN, *txc, snr_db=35.0)
+        raw = RG.gen_raw_system(GEN_SEED, B_GEN, *txc, lts, equalize_with="h_mmse")
+        raw_cfo = RG.gen_raw_system(GEN_SEED + 1, B_GEN, *txc, lts, equalize_with="h_mmse",
+                                    cfo_khz=40.0)
+        runs = {gen: S.run_stream_device(N_STREAM, B_GEN, seed=GEN_SEED, snr_db=STREAM_SNR[gen],
+                                         out_dir=str(tmp / gen), gen=gen, device=dev)
+                for gen in S.GENERATORS}
+        torch.cuda.synchronize()
+        launches = {"gen_chain": G.launches, "raw_gen_chain": RG.launches,
+                    "fused_chain": F.launches, "place": D.place_launches, "raw_chain": R.launches}
+        for k, n in launches.items():
+            check(n > 0, f"the generative path launched no {k} kernel")
+        records = {gen: read_stream(tmp / gen, N_STREAM) for gen in S.GENERATORS}
+        for gen in S.GENERATORS:
+            check(runs[gen]["frames"] == N_STREAM * B_GEN, f"stream {gen}: {runs[gen]['frames']} frames")
+            check_stream_summaries(gen, records[gen])
+        for gen in S.GENERATORS:
+            check_resume(tmp, gen, dev)
+
+    # stream mode at SNR 20: the record and the sums
+    check(tuple(st["sums"].shape) == (G.N_SUMS, G.LANES), "gen stream: sums shape")
+    check(bool(torch.isfinite(st["sums"]).all() and torch.isfinite(st["checksum"]).all()),
+          "gen stream: not finite")
+    s = st["sums"].double().sum(-1)
+    nmse20 = {n: float(10 * torch.log10(s[k] / s[-1])) for k, n in enumerate(F.OUT_NAMES)}
+    # full outputs at SNR 35: tests/test_stream.py:245-253's bounds, σ̂² within 2%
+    for k, v in full.items():
+        for t in (v if isinstance(v, Cplx) else (v,)):
+            check(t.shape[-1] == B_GEN and bool(torch.isfinite(t.float()).all()), f"gen full: {k}")
+    nmse35 = {n: nmse_db(full[n], full["h_true"]) for n in F.OUT_NAMES}
+    for n, bound_db in (("h_lt", -12.0), ("h_mmse", -12.0), ("h_wiener", -5.0)):
+        check(nmse35[n] < bound_db, f"gen full SNR 35: {n} NMSE {nmse35[n]:.2f} dB")
+    sigma_t2 = 10 ** (-3.5) / 64
+    ow2 = float(full["ow2"].double().mean())
+    check(abs(ow2 - sigma_t2) <= 0.02 * sigma_t2, f"gen full: mean sigma^2 {ow2} vs {sigma_t2}")
+    want = G.gen_chain_plain(GEN_SEED, B_GEN_SMALL, *txc, snr_db=35.0)
+    errs = {"gen_chain": compare_gen("gen full slice", full, want, GEN_EQ_TOL[torch.bfloat16],
+                                     slice(0, B_GEN_SMALL))}
+
+    in_band, evm = raw_gen_gates("raw gen", raw, evm_den, 0.85, 0.1)
+    want = RG.gen_raw_plain(GEN_SEED, B_GEN_SMALL, *txc, lts, equalize_with="h_mmse")
+    errs["raw_gen_chain"] = compare_raw_gen("raw gen slice", raw, want, slice(0, B_GEN_SMALL))
+    cfo_err_hz = float(((raw_cfo["cfo"] - raw_cfo["cfo_true"]).abs() * 20e6).median())
+    check(cfo_err_hz < 200.0, f"raw gen 40 kHz: median |cfo error| {cfo_err_hz:.1f} Hz")
+    det = raw_cfo["detected"]
+    evm_cfo = float(torch.sqrt(raw_cfo["evm_sums"][det].double().mean() / evm_den))
+    check(evm_cfo < 0.15, f"raw gen 40 kHz: evm_rms {evm_cfo:.4f}")
+    torch.cuda.synchronize()
+    fmt = lambda d: ", ".join(f"{k} {v:.2f}" for k, v in d.items())  # noqa: E731
+    print(f"phase 7 ok: fused_gen_chain B={B_GEN}: stream SNR 20 NMSE dB {fmt(nmse20)}; "
+          f"full SNR 35 NMSE dB {fmt(nmse35)}, mean sigma^2 {ow2:.6g} (target {sigma_t2:.6g}); "
+          f"first {B_GEN_SMALL} frames == plain")
+    print(f"phase 7 ok: gen_raw_system B={B_GEN} x NS={NS} SNR 20 h_mmse: detect 1.0, timing in "
+          f"band {in_band:.4f}, evm_rms {evm:.4f}; 40 kHz: median cfo error {cfo_err_hz:.1f} Hz, "
+          f"detect {float(det.double().mean()):.4f}, evm_rms {evm_cfo:.4f}; first {B_GEN_SMALL} "
+          "streams == plain")
+    for gen in S.GENERATORS:
+        last = records[gen][-1]
+        print(f"phase 7 ok: stream {gen} ({N_STREAM} x {B_GEN}, SNR {STREAM_SNR[gen]}): batch "
+              f"{N_STREAM - 1} " + ", ".join(f"{k} {float(v):.4g}" for k, v in last.items()
+                                             if k != "h_mmse_sample") + "; resume bit-identical")
+    print(f"phase 7: launches {launches}")
+    return launches, errs, (txc, lts, st, raw)
+
+
+def phase_gen_timing(gen_in, dev) -> dict:
+    """8: the generative kernels against their plain versions, and one
+    stream step per generator, serialized through the carried state."""
+    txc, lts = gen_in[:2]
+    t = {"gen_chain": in_turns(
+        lambda: G.fused_gen_chain(GEN_SEED, B_GEN, *txc, stream_sums=True),
+        lambda: G.gen_chain_plain(GEN_SEED, B_GEN, *txc, stream_sums=True))}
+    gen_full = time_ms(lambda: G.fused_gen_chain(GEN_SEED, B_GEN, *txc))
+    t["raw_gen_chain"] = in_turns(
+        lambda: RG.gen_raw_system(GEN_SEED, B_GEN, *txc, lts, equalize_with="h_mmse"),
+        lambda: RG.gen_raw_plain(GEN_SEED, B_GEN, *txc, lts, equalize_with="h_mmse"))
+    steps = {}
+    for gen in S.GENERATORS:
+        step, s0 = S.make_device_stream_step(B_GEN, seed=GEN_SEED, gen=gen, device=dev)
+        carry = {"i": 0, "state": s0}
+
+        def one():
+            _, _, carry["state"] = step(carry["i"], carry["state"])
+            carry["i"] += 1
+
+        steps[gen] = time_ms(one)
+    # anatomy: the raw receiver alone on raw_gen_chain's own f32 field, and
+    # the torch generators the xla and raw steps call
+    field = RG.gen_raw_system(GEN_SEED, B_GEN, *txc, lts, equalize_with="h_mmse",
+                              return_field=True)["field"]
+    recv = time_ms(lambda: R.raw_rx_txconst_fused(field, lts, *txc, decimate=16, stream_sums=True,
+                                                  equalize_with="h_mmse"))
+    det = time_ms(lambda: D.detect_streams(field, lts, decimate=16))
+    del field
+    seeded = lambda: torch.Generator(device=dev).manual_seed(GEN_SEED)  # noqa: E731
+    gen_rx = time_ms(lambda: SC.generate_rx_lane_major(seeded(), B_GEN, *txc))
+    gen_raw = time_ms(lambda: SC.generate_raw_lane_major(seeded(), B_GEN, *txc, ns=NS))
+    torch.cuda.synchronize()
+    for name in ("gen_chain", "raw_gen_chain"):
+        k_ms, p_ms = t[name]
+        print(f"phase 8: {name}: kernel {k_ms:.4f} ms = {B_GEN / k_ms * 1e3:.4g} frames/s; "
+              f"plain {p_ms:.4f} ms")
+    print(f"phase 8: fused_gen_chain with full outputs at B={B_GEN}: {gen_full:.4f} ms")
+    print(f"phase 8: raw_gen_chain anatomy: the raw receiver alone on its f32 field {recv:.4f} ms "
+          f"(detection {det:.4f} ms), so synthesis ~{t['raw_gen_chain'][0] - recv:.4f} ms")
+    for gen, ms in steps.items():
+        print(f"phase 8: stream step {gen}: {ms:.4f} ms per batch = {B_GEN / ms * 1e3:.4g} frames/s")
+    print(f"phase 8: generate_rx_lane_major {gen_rx:.4f} ms, generate_raw_lane_major {gen_raw:.4f} ms "
+          f"at B={B_GEN}")
+    return t
+
+
+# operations per frame or stream, from the shapes: an f32 or 32-bit integer
+# operation counts 1, a complex multiply-add 8, a log, sqrt, sin or cos 1
+DFT_OPS = 16 * 53 * 64 * 8   # the chain's 16 DFTs of 53 bins from 64 samples
+CHAIN_OPS = 29_000           # the rest of the chain: equalizer 15·53·19, the five
+                             # interpolators 53·4·24, MMSE 4·53·17 + 53·32, LT-LS, checksum
+EVM_OPS = 15 * 53 * 4
+PHILOX_OPS = 80              # ten rounds of 2 mulhi, 2 mullo, 4 xor
+PAIR_OPS = 12                # two uniforms, log, sqrt, 2π·u, sin, cos, two products
+
+
+def detect_ops(b: int, n_det: int, stride: int = 16, search: int = 192) -> float:
+    """The lag-64 window sums over every sample (16 per sample), and the
+    matched filter (64 taps) over each detected stream's fine window."""
+    return b * 16 * NS + n_det * (2 * (search + stride) + 68) * 64 * 8
+
+
+def gen_ops(b: int, n_taps: int) -> float:
+    """fused_gen_chain: a Philox call per tap, per preamble bin and per
+    block bin; a normal pair per tap, two per preamble bin, one per block
+    bin; the CFR; tx·H and the noise of 16 symbols; the chain without DFTs;
+    the stream sums."""
+    calls, pairs = n_taps + 53 + 15 * 53, n_taps + 2 * 53 + 15 * 53
+    per = (calls * PHILOX_OPS + pairs * PAIR_OPS + 53 * n_taps * 8 + 53 * (16 * 6 + 17 * 4)
+           + CHAIN_OPS + 8 * 53 * 4)
+    return float(b * per)
+
+
+def raw_gen_ops(b: int, n_taps: int, n_det: int) -> float:
+    """gen_raw_system: the channel, 16 IDFTs of 64 samples from 53 bins,
+    a noise pair per row, then detection and the chain with EVM sums."""
+    calls, pairs = n_taps + 1 + NS, n_taps + NS
+    per = (calls * PHILOX_OPS + pairs * PAIR_OPS + 53 * n_taps * 8 + 16 * 53 * 6
+           + 16 * 64 * 53 * 8 + NS * 4 + DFT_OPS + CHAIN_OPS + EVM_OPS)
+    return b * per + detect_ops(b, n_det)
+
+
+def nbytes(*xs) -> int:
+    """Bytes of tensors, split planes, tuples and dicts of them."""
+    n = 0
+    for x in xs:
+        if isinstance(x, dict):
+            n += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            n += nbytes(*x)
+        elif isinstance(x, torch.Tensor):
+            n += x.numel() * x.element_size()
+    return n
+
+
+def bound(ops: float, n_bytes: int) -> tuple[float, str]:
+    """The least time the card could take, ms, and what sets it: each input
+    read and each output written once at the HBM rate, or the operations at
+    the f32 rate."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bounds(main_in, raw_in, gen_in, dev) -> dict:
+    """Each kernel's bound at the shapes phases 4, 6 and 8 time, from this
+    run's inputs and outputs."""
+    pk, lp, txm = main_in
+    x, lts, txc, sig, noise, offs = raw_in
+    _, _, st, raw = gen_in
+    consts = F.chain_consts(dev)
+    b_main, b_raw = pk.re.shape[-1], x.re.shape[-1]
+    chain_out = F.fused_chain(pk, lp, txm, consts)
+    det = D.detect_streams(x, lts, decimate=16)
+    n_det = int(det["detected"].sum())
+    raw_out = R.raw_rx_txconst_fused(x, lts, *txc, decimate=16, stream_sums=True,
+                                     equalize_with="h_mmse")
+    n_taps = G.channel_consts(dev).tscale.shape[0]
+    return {
+        "fused_chain": bound(b_main * (DFT_OPS + CHAIN_OPS), nbytes(pk, lp, txm, consts, chain_out)),
+        "detect": bound(detect_ops(b_raw, n_det), nbytes(x, lts, det)),
+        "place": bound(2 * sig.re.numel(), nbytes(sig, noise, offs, x)),
+        "raw_chain": bound(detect_ops(b_raw, n_det) + b_raw * (DFT_OPS + CHAIN_OPS + EVM_OPS),
+                           nbytes(x, lts, txc, raw_out)),
+        "gen_chain": bound(gen_ops(B_GEN, n_taps), nbytes(txc, st)),
+        "raw_gen_chain": bound(raw_gen_ops(B_GEN, n_taps, int(raw["detected"].sum())),
+                               nbytes(txc, lts, raw)),
+    }
 
 
 def main() -> int:
@@ -601,10 +1016,14 @@ def main() -> int:
     cap = load_capture()
     phase_small(cap, dev)
     small_errs = phase_small_raw(cap, dev)
+    small_errs.update(phase_small_gen(cap, dev))
     launches, max_abs, main_in = phase_main(cap, dev)
     k_ms, p_ms = phase_timing(*main_in, dev)
     raw_launches, raw_errs, raw_in = phase_raw(cap, dev)
     t = phase_raw_timing(raw_in, main_in, dev)
+    gen_launches, gen_errs, gen_in = phase_gen(cap, dev)
+    t.update(phase_gen_timing(gen_in, dev))
+    lower = bounds(main_in, raw_in, gen_in, dev)
     src = "tpu80211_torch/kernels/csrc/"
     rows = [
         ("fused_chain", "fused_chain.cu", "tpu80211/kernels/fused_chain.py:93", launches,
@@ -615,10 +1034,18 @@ def main() -> int:
          max(small_errs["place"], raw_errs["place"]), t["place"]),
         ("raw_chain", "raw_chain.cu", "tpu80211/kernels/raw_chain.py:41",
          raw_launches["raw_chain"], raw_errs["raw_chain"], t["raw_chain16"]),
+        ("gen_chain", "gen_chain.cu", "tpu80211/kernels/gen_chain.py:115",
+         gen_launches["gen_chain"], max(small_errs["gen_chain"], gen_errs["gen_chain"]),
+         t["gen_chain"]),
+        ("raw_gen_chain", "raw_gen_chain.cu", "tpu80211/kernels/raw_gen_chain.py:65",
+         gen_launches["raw_gen_chain"], max(small_errs["raw_gen_chain"], gen_errs["raw_gen_chain"]),
+         t["raw_gen_chain"]),
     ]
+    # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": lower[name][0], "bound_by": lower[name][1], "library_ms": None,
     } for name, source, replaces, n, err, (ms, plain_ms) in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -170,7 +170,8 @@ def _spectra(const_frames):
     tx_pkt, _, tx_lp, _ = const_frames
     txs, tpre = JF.tx_spectra(jax_planes(tx_pkt[0]), jax_planes(tx_lp[0]))
     return (txs, tpre), convert.tx_spectra(*(np.asarray(a) for a in (txs.re, txs.im,
-                                                                      tpre.re, tpre.im)))
+                                                                      tpre.re, tpre.im)),
+                                                 device="cpu")
 
 
 @pytest.mark.parametrize("case", list(SYNC_CASES))

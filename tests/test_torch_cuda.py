@@ -14,11 +14,14 @@ from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.datasets.loader import load_capture
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
+from tpu80211_torch.kernels import gen_chain as G
 from tpu80211_torch.kernels import raw_chain as R
+from tpu80211_torch.kernels import raw_gen_chain as RG
 from tpu80211_torch.pipeline import raw as P
+from tpu80211_torch.pipeline import stream as S
 
 from _torch_inputs import (TOL, assert_matches, lane_major, lts_taps, make_frames, make_streams,
-                           torch_planes, with_cfo)
+                           rel, to_np, torch_planes, with_cfo)
 
 B = 1000  # ragged: no multiple of the kernels' 32 frames per block
 NS = 2048
@@ -232,3 +235,112 @@ def test_staged_receiver_equals_fused_kernel(dev):
     torch.cuda.synchronize()
     assert torch.equal(staged["start"], fused["start"])
     assert_matches(fused, staged, B, TOL["bf16"])
+
+
+# -- the generative kernels -------------------------------------------------------------------
+
+GEN_B = 1024  # a multiple of 128, as the generative entries require
+
+
+def _spectra(dev) -> F.TxConst:
+    cap = load_capture()
+    return F.tx_spectra(*(torch_planes(a).map(lambda t: t.to(dev))
+                          for a in (cap.tx_packet, cap.tx_lptot)))
+
+
+GEN_CASES = {
+    "legacy-snr20-bf16": dict(),
+    "A-snr35-bf16": dict(channel_model="A", snr_db=35.0),
+    "E-snr10-f32": dict(channel_model="E", snr_db=10.0, eq_dtype=torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream_sums", [False, True])
+@pytest.mark.parametrize("case", list(GEN_CASES))
+def test_gen_kernel_matches_plain(case, stream_sums, dev):
+    """The kernel's normals are the plain version's bit for bit, so every
+    output agrees to f32 summation order: the h planes at TOL's f32
+    entries, eq at its type's entry, the checksum 1e-4 of the largest."""
+    kw = dict(GEN_CASES[case], stream_sums=stream_sums)
+    txc = _spectra(dev)
+    before = G.launches
+    got = G.fused_gen_chain(3, GEN_B, *txc, **kw)
+    torch.cuda.synchronize()
+    assert G.launches == before + 1
+    want = G.gen_chain_plain(3, GEN_B, *txc, **kw)
+    tol = TOL["f32"]
+    eq_tol = TOL["bf16" if kw.get("eq_dtype", torch.bfloat16) == torch.bfloat16 else "f32"]["eq"]
+    for name in (*F.OUT_NAMES, "h_true", "eq"):
+        lim = eq_tol if name == "eq" else tol.get(name, tol["h"])
+        for g, w in zip(got[name], want[name]):
+            assert rel(to_np(g), to_np(w)) < lim, (name, rel(to_np(g), to_np(w)))
+    np.testing.assert_allclose(got["ow2"].cpu().numpy(), want["ow2"].cpu().numpy(), rtol=1e-4)
+    assert rel(to_np(got["checksum"]), to_np(want["checksum"])) < 1e-4
+    if stream_sums:
+        assert got["sums"].shape == (G.N_SUMS, G.LANES)
+        assert rel(to_np(got["sums"]), to_np(want["sums"])) < 1e-5
+
+
+@pytest.mark.cuda
+def test_gen_kernel_frames_do_not_depend_on_batch(dev):
+    """A frame's draws depend on (seed, frame) only: the first 128 frames of
+    a batch of 1024 are those of a batch of 128, bit for bit; the seed may
+    be a 0-d int32 tensor on the card."""
+    txc = _spectra(dev)
+    small = G.fused_gen_chain(9, 128, *txc)
+    big = G.fused_gen_chain(torch.tensor(9, dtype=torch.int32, device=dev), GEN_B, *txc)
+    for name in (*F.OUT_NAMES, "h_true", "eq"):
+        for a, b in zip(small[name], big[name]):
+            assert torch.equal(a, b[..., :128]), name
+    assert torch.equal(small["checksum"], big["checksum"][:128])
+
+
+RAW_GEN_CASES = {
+    "snr20": dict(),
+    "cfo40-mmse": dict(cfo_khz=40.0, equalize_with="h_mmse"),
+    "A-snr35-wiener": dict(channel_model="A", snr_db=35.0, equalize_with="h_wiener"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RAW_GEN_CASES))
+def test_raw_gen_kernel_matches_plain(case, dev):
+    """The synthesized field is the plain version's bit for bit, so the
+    offsets, the true CFO and the detection rows are exact; the chain's
+    outputs agree at the bf16 tolerances, the checksum and EVM sums to 1e-3
+    of the largest (deep fades amplify summation order in the blend)."""
+    kw = RAW_GEN_CASES[case]
+    txc, lts = _spectra(dev), _taps(dev)
+    before = RG.launches
+    got = RG.gen_raw_system(5, GEN_B, *txc, lts, return_field=True, **kw)
+    torch.cuda.synchronize()
+    assert RG.launches == before + 1
+    want = RG.gen_raw_plain(5, GEN_B, *txc, lts, return_field=True, **kw)
+    for g, w in zip(got["field"], want["field"]):
+        assert torch.equal(g, w)
+    for k in ("detected", "start", "offsets", "cfo_true"):
+        assert torch.equal(got[k], want[k]), k
+    for name, lim in (("h_true", 1e-6), ("h_wiener", 1e-4), ("h_mmse", 1e-3)):
+        for g, w in zip(got[name], want[name]):
+            assert rel(to_np(g), to_np(w)) < lim, (name, rel(to_np(g), to_np(w)))
+    np.testing.assert_allclose(got["ow2"].cpu().numpy(), want["ow2"].cpu().numpy(), rtol=1e-4)
+    assert float((got["cfo"] - want["cfo"]).abs().max()) <= 1e-6
+    for k in ("checksum", "evm_sums"):
+        assert rel(to_np(got[k]), to_np(want[k])) < 1e-3, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen", list(S.GENERATORS))
+def test_stream_step_on_the_card(gen, dev):
+    """One device stream step per generator launches its kernels and returns
+    finite summaries on the card; the same (i, state) gives the same batch."""
+    step, s0 = S.make_device_stream_step(GEN_B, snr_db=30.0, gen=gen, device=dev)
+    summary, sample_h, s1 = step(0, s0)
+    again, sample_b, _ = step(0, s0)
+    torch.cuda.synchronize()
+    assert s1.device.type == "cuda" and s1.dtype == torch.int32
+    for k, v in summary.items():
+        assert v.device.type == "cuda" and bool(torch.isfinite(v)), k
+        assert torch.equal(v, again[k]), k
+    assert torch.equal(sample_h.re, sample_b.re)

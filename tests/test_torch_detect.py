@@ -145,9 +145,9 @@ def test_mf_taps_equal_mf_bands():
     wrr, wri = JD._mf_bands((tuple(map(float, h.re)), tuple(map(float, h.im))))
     got = TD.mf_taps(h)
     assert torch.equal(got.re, torch.tensor(wrr)) and torch.equal(got.im, torch.tensor(wri))
-    carried = convert.mf_taps(wrr, wri)
+    carried = convert.mf_taps(wrr, wri, device="cpu")
     assert torch.equal(carried.re, got.re) and torch.equal(carried.im, got.im)
-    lts = convert.lts_ref(h.re.numpy(), h.im.numpy())
+    lts = convert.lts_ref(h.re.numpy(), h.im.numpy(), device="cpu")
     assert torch.equal(lts.re, h.re) and lts.re.dtype == torch.float32
 
 

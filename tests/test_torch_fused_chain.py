@@ -57,7 +57,8 @@ def _jax_spectra(const_frames):
 
 def _port_spectra(const_frames):
     txs, tpre = _jax_spectra(const_frames)
-    return convert.tx_spectra(*(np.asarray(a) for a in (txs.re, txs.im, tpre.re, tpre.im)))
+    return convert.tx_spectra(*(np.asarray(a) for a in (txs.re, txs.im, tpre.re, tpre.im)),
+                              device="cpu")
 
 
 def _run(case, frames, side):
@@ -122,7 +123,8 @@ def test_consts_from_jax_equal_the_ports(frames, results):
     """JAX's _const_specs, carried across by convert, drive the plain
     version to the very same outputs as the port's own constants."""
     _, (wre, wim, win_re, win_im) = JF._const_specs()
-    consts = convert.chain_consts(*(np.asarray(a) for a in (wre, wim, win_re, win_im)))
+    consts = convert.chain_consts(*(np.asarray(a) for a in (wre, wim, win_re, win_im)),
+                                   device="cpu")
     _, rx_pkt, _, rx_lp = (x[:6] for x in frames[1])
     got = TF.fused_chain_plain(torch_planes(lane_major(rx_pkt)), torch_planes(lane_major(rx_lp)),
                                _port_spectra(frames[1]), consts)

@@ -83,7 +83,8 @@ def test_convert_const_specs_round_trip(model, snr):
     """JAX's fused-chain constants, carried across, equal the port's own:
     both cast the same float64 matrices to float32, so exactly."""
     _, (wre, wim, win_re, win_im) = JF._const_specs(model, snr)
-    got = convert.chain_consts(*(np.asarray(a) for a in (wre, wim, win_re, win_im)))
+    got = convert.chain_consts(*(np.asarray(a) for a in (wre, wim, win_re, win_im)),
+                               device="cpu")
     want = TF.chain_consts("cpu", model, snr)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
@@ -95,7 +96,8 @@ def test_convert_tx_spectra_round_trip(capture):
     are f32 DFTs of the same samples, so within f32 summation order
     (5e-6 of the largest bin)."""
     jtxs, jtpre = JF.tx_spectra(jax_planes(capture.tx_packet), jax_planes(capture.tx_lptot))
-    got = convert.tx_spectra(*(np.asarray(a) for a in (jtxs.re, jtxs.im, jtpre.re, jtpre.im)))
+    got = convert.tx_spectra(*(np.asarray(a) for a in (jtxs.re, jtxs.im, jtpre.re, jtpre.im)),
+                             device="cpu")
     want = TF.tx_spectra(torch_planes(capture.tx_packet), torch_planes(capture.tx_lptot))
     assert got.txs.re.shape == (53, 16) and got.tpre.re.shape == (53, 1)
     for g, w in ((got.txs, want.txs), (got.tpre, want.tpre)):

@@ -23,7 +23,10 @@ def _modules():
 def test_package_imports_no_jax():
     """Importing the port and every module in it loads no JAX."""
     mods = _modules()
-    assert "tpu80211_torch.kernels.fused_chain" in mods and "tpu80211_torch.pipeline.sc" in mods
+    assert {"tpu80211_torch.kernels.fused_chain", "tpu80211_torch.pipeline.sc",
+            "tpu80211_torch.kernels.gen_chain", "tpu80211_torch.kernels.raw_gen_chain",
+            "tpu80211_torch.pipeline.stream", "tpu80211_torch.datasets.synthetic",
+            "tpu80211_torch.datasets.synthetic_sc"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpu80211.')))\n"
@@ -94,3 +97,18 @@ def test_require_cuda_gate():
     with pytest.raises(RuntimeError, match="CUDA tensors only"):
         kernels.require_cuda(torch.zeros(1))
     assert kernels.on_cuda() == torch.cuda.is_available()
+
+
+def test_entry_points_default_to_the_card():
+    """The entries that take a device run on the card unless the caller
+    names another; the others follow their inputs' device."""
+    import inspect
+
+    from tpu80211_torch import convert
+    from tpu80211_torch.kernels import gen_chain, raw_gen_chain
+    from tpu80211_torch.pipeline import stream
+
+    for fn in (convert.chain_consts, convert.tx_spectra, convert.lts_ref, convert.mf_taps,
+               stream.make_device_stream_step, stream.run_stream_device, gen_chain.gen_draws,
+               raw_gen_chain.raw_draws):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__

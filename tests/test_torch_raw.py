@@ -42,8 +42,9 @@ def workload():
     txs, tpre = JF.tx_spectra(JCplx.from_complex(cap.tx_packet, jnp.float32),
                               JCplx.from_complex(cap.tx_lptot, jnp.float32))
     jax_side = (JCplx(jnp.asarray(h.real), jnp.asarray(h.imag)), txs, tpre)
-    port_side = (convert.lts_ref(h.real, h.imag),
-                 convert.tx_spectra(*(np.asarray(a) for a in (txs.re, txs.im, tpre.re, tpre.im))))
+    port_side = (convert.lts_ref(h.real, h.imag, device="cpu"),
+                 convert.tx_spectra(*(np.asarray(a) for a in (txs.re, txs.im, tpre.re, tpre.im)),
+                                    device="cpu"))
     return (JCplx(jnp.asarray(re), jnp.asarray(im)), Cplx(torch.tensor(re), torch.tensor(im)),
             offs, jax_side, port_side)
 

@@ -1,0 +1,338 @@
+// The generative raw system for Hopper (sm_90a): a seed in; per stream a
+// channel, a time-domain frame at a random offset in NS samples of AWGN
+// (with an optional CFO), then detection, timing and the tx-constant chain
+// on it, in one launch.  Out: detection rows, the true offsets, CFR and CFO,
+// h_wiener, h_mmse, the per-stream EVM sums, sigma^2, the CFO estimate and
+// the checksum.
+//
+// Replaces tpu80211/kernels/raw_gen_chain.py::_gen_raw_kernel (pallas_call
+// site _gen_raw_call), point by point:
+//   * the channel draw of gen_chain.cu (gen.cuh);
+//   * the frame: 16 IDFTs (64 x 53) of tx_s H in f64, rounded to f32 and
+//     then to bf16 (the TPU kernel's bf16 placement), laid out as the long
+//     preamble [last 32 | LTS | LTS] and 15 blocks [CP 16 | 64];
+//   * offset 40 + (bits & 0x7fffffff) % span, span = NS - 1360 - 40;
+//   * with cfo_khz > 0 a per-stream eps = (2u - 1) cfo_khz 1e3 / 20e6 as a
+//     phase ramp over the stream's rows (f32 angle, f64 sincos rounded to
+//     f32, no FMA in the rotation);
+//   * AWGN nsc N on every row, nsc = sqrt(sigma_t^2 / 2) per plane;
+//   * detect.cuh on the f32 field, decimated (stride 16); start = -1 where
+//     nothing was detected;
+//   * chain.cuh (tx-constant, serve, no eq, EVM sums, sync iff cfo_khz > 0)
+//     on the aligned rows rounded to bf16: the field is read through
+//     gen::Bf16Sample, whose loads round to bf16, so the chain computes on
+//     exactly the bf16 rows the TPU kernel hands it.
+// The additions and products of the synthesis are rounded one by one, as
+// the plain PyTorch version rounds them, and the draws are gen.cuh's: the
+// field agrees bit for bit with kernels/raw_gen_chain.py::gen_raw_plain's,
+// so detection does too.
+//
+// Design, simple first: one block holds 32 streams x 8 groups.  It writes its
+// streams' whole field into an (NS, B) f32 scratch buffer (the wrapper's),
+// then, after a barrier, runs detect::run and chain::run on its own columns
+// exactly as raw_chain.cu does.  A stream's frame rows are written at its own
+// offset, so those stores are not coalesced.
+//
+// What bounds it on this card.  Per stream ~2,050 Box-Muller pairs in f64,
+// 16 IDFTs (2.2e5 f64 FMAs), the scratch field (16 KB written, read twice),
+// then raw_chain's detection (scattered loads) and chain (FP32 DFTs).  The
+// scratch alone is >= 0.32 ms of HBM traffic at B = 32,768, NS = 2,048.
+
+#include "chain.cuh"
+#include "detect.cuh"
+#include "gen.cuh"
+
+namespace gen {
+
+// An f32 scratch sample that the chain reads as a bf16 sample word: rounded
+// to bf16 on load (found by argument-dependent lookup from chain.cuh).
+struct Bf16Sample {
+  float v;
+};
+__device__ __forceinline__ float to_f32(Bf16Sample x) {
+  return __bfloat162float(__float2bfloat16_rn(x.v));
+}
+
+}  // namespace gen
+
+static_assert(sizeof(gen::Bf16Sample) == sizeof(float), "the scratch is read in place");
+static_assert(chain::FRAMES == detect::LANES && chain::GROUPS == detect::WARPS,
+              "the chain and the detector share one block layout");
+
+namespace {
+
+using chain::BINS;
+using chain::FRAMES;
+using chain::GROUPS;
+using chain::N_FFT;
+using chain::N_SC;
+using chain::THREADS;
+
+constexpr int N_SYMBOLS = 1 + chain::N_BLOCKS;  // the LTS, then the data blocks
+constexpr int PER_THREAD = N_FFT / GROUPS;       // samples of a symbol per thread
+constexpr int MIN_OFFSET = 40;
+constexpr float TWO_PI_F = 6.28318530717958647692f;
+
+struct SynthSmem {
+  double2 v[N_FFT][N_SC];  // the IDFT
+  double2 x[N_SC][FRAMES];  // one symbol's spectrum per stream
+  float2 txs[chain::N_BLOCKS][N_SC];
+  float2 tpre[N_SC];
+  float2 wc[N_SC][gen::MAX_TAPS];
+  float tscale[gen::MAX_TAPS];
+};
+
+struct RawGenParams {
+  detect::Config det_cfg;
+  chain::Params chain;
+  const float* v_re;  // (64, 53) IDFT
+  const float* v_im;
+  const float* wc_re;  // (53, n_taps)
+  const float* wc_im;
+  const float* tscale;
+  const int* seed;
+  float* x_re;  // (ns, B) scratch field
+  float* x_im;
+  int* det;
+  int* coarse;
+  int* start;
+  float* metric;
+  int* offs;
+  float* ht_re;  // (53, B)
+  float* ht_im;
+  float* cfo_true;
+  int n_taps;
+  int span;
+  float nsc;        // per-plane time-domain noise scale
+  float cfo_scale;  // cfo_khz * 1e3 / 20e6 (0: no CFO)
+};
+
+__device__ void synthesize(const RawGenParams& p, SynthSmem& s, long long f, bool live, int lane,
+                           int g) {
+  const long long batch = p.chain.batch;
+  const int ns = p.det_cfg.ns;
+  for (int i = threadIdx.x; i < N_FFT * N_SC; i += THREADS)
+    (&s.v[0][0])[i] = make_double2(p.v_re[i], p.v_im[i]);
+  for (int i = threadIdx.x; i < chain::N_BLOCKS * N_SC; i += THREADS) {
+    const int b = i / N_SC, k = i % N_SC;
+    const float* txs_re = static_cast<const float*>(p.chain.txa_re);
+    const float* txs_im = static_cast<const float*>(p.chain.txa_im);
+    s.txs[b][k] = make_float2(txs_re[k * chain::NB_PAD + b], txs_im[k * chain::NB_PAD + b]);
+  }
+  for (int k = threadIdx.x; k < N_SC; k += THREADS)
+    s.tpre[k] = make_float2(static_cast<const float*>(p.chain.txb_re)[k],
+                            static_cast<const float*>(p.chain.txb_im)[k]);
+  for (int i = threadIdx.x; i < N_SC * p.n_taps; i += THREADS)
+    s.wc[i / p.n_taps][i % p.n_taps] = make_float2(p.wc_re[i], p.wc_im[i]);
+  for (int l = threadIdx.x; l < p.n_taps; l += THREADS) s.tscale[l] = p.tscale[l];
+  __syncthreads();
+
+  const uint2 key = gen::key_of(*p.seed);
+  float2 h[BINS];
+  gen::channel_bins<BINS, GROUPS, N_SC>(key, f, p.n_taps, s.tscale, s.wc, g, h);
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < BINS; ++j) {
+      const int k = g + GROUPS * j;
+      if (k < N_SC) {
+        p.ht_re[k * batch + f] = h[j].x;
+        p.ht_im[k * batch + f] = h[j].y;
+      }
+    }
+  }
+
+  const uint4 wo = gen::draw(key, f, 0, gen::OFFSET);
+  const int off = MIN_OFFSET + static_cast<int>((wo.x & 0x7FFFFFFFu) % static_cast<uint32_t>(p.span));
+  const bool cfo = p.cfo_scale != 0.f;
+  const float eps =
+      cfo ? __fmul_rn(__fsub_rn(__fmul_rn(2.f, gen::uniform(wo.y)), 1.f), p.cfo_scale) : 0.f;
+  if (live && g == 0) {
+    p.offs[f] = off;
+    p.cfo_true[f] = eps;
+  }
+
+  auto noise = [&](int r) {
+    const uint4 w = gen::draw(key, f, r, gen::NOISE);
+    return gen::normal_pair(w.x, w.y);
+  };
+  auto store = [&](int r, float2 v) {
+    const long long i = static_cast<long long>(r) * batch + f;
+    p.x_re[i] = v.x;
+    p.x_im[i] = v.y;
+  };
+  // the rows outside the frame: noise only (coalesced: a warp's lanes are
+  // neighbouring streams on one row)
+  if (live)
+    for (int r = g; r < ns; r += GROUPS)
+      if (r < off || r >= off + detect::FRAME) {
+        const float2 z = noise(r);
+        store(r, make_float2(__fmul_rn(p.nsc, z.x), __fmul_rn(p.nsc, z.y)));
+      }
+  // a frame row: the bf16 sample, rotated by the CFO, plus noise
+  auto put = [&](int rel, float2 v) {
+    const int r = off + rel;
+    if (cfo) {
+      const float ang = __fmul_rn(__fmul_rn(TWO_PI_F, eps), static_cast<float>(r));
+      double sd, cd;
+      sincos(static_cast<double>(ang), &sd, &cd);
+      const float sn = static_cast<float>(sd), cs = static_cast<float>(cd);
+      v = make_float2(__fsub_rn(__fmul_rn(v.x, cs), __fmul_rn(v.y, sn)),
+                      __fadd_rn(__fmul_rn(v.x, sn), __fmul_rn(v.y, cs)));
+    }
+    const float2 z = noise(r);
+    store(r, make_float2(__fadd_rn(v.x, __fmul_rn(p.nsc, z.x)),
+                         __fadd_rn(v.y, __fmul_rn(p.nsc, z.y))));
+  };
+  auto bf16 = [](double v) {
+    return __bfloat162float(__float2bfloat16_rn(static_cast<float>(v)));
+  };
+
+  // the frame, one symbol at a time: its spectrum tx_s H (f32) to shared
+  // memory, then each thread's 8 samples of it by the IDFT in f64
+  for (int sym = 0; sym < N_SYMBOLS; ++sym) {
+    __syncthreads();  // the previous symbol's spectrum is read
+#pragma unroll
+    for (int j = 0; j < BINS; ++j) {
+      const int k = g + GROUPS * j;
+      if (k < N_SC) {
+        const float2 c = gen::cmul_rn(sym == 0 ? s.tpre[k] : s.txs[sym - 1][k], h[j]);
+        s.x[k][lane] = make_double2(c.x, c.y);
+      }
+    }
+    __syncthreads();
+    double ar[PER_THREAD], ai[PER_THREAD];
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) ar[i] = ai[i] = 0.0;
+    for (int k = 0; k < N_SC; ++k) {
+      const double2 xk = s.x[k][lane];
+#pragma unroll
+      for (int i = 0; i < PER_THREAD; ++i) {
+        const double2 v = s.v[g + GROUPS * i][k];
+        ar[i] += v.x * xk.x - v.y * xk.y;
+        ai[i] += v.x * xk.y + v.y * xk.x;
+      }
+    }
+    if (!live) continue;
+#pragma unroll 1
+    for (int i = 0; i < PER_THREAD; ++i) {
+      const int n = g + GROUPS * i;
+      const float2 t = make_float2(bf16(ar[i]), bf16(ai[i]));
+      if (sym == 0) {  // the long preamble: [last 32 | LTS | LTS]
+        put(32 + n, t);
+        put(32 + N_FFT + n, t);
+        if (n >= N_FFT - 32) put(n - (N_FFT - 32), t);
+      } else {  // data block sym - 1: [CP 16 | 64]
+        const int base = chain::PREAMBLE + chain::SAMP_PER_BLOCK * (sym - 1);
+        put(base + chain::N_CP + n, t);
+        if (n >= N_FFT - chain::N_CP) put(base + n - (N_FFT - chain::N_CP), t);
+      }
+    }
+  }
+}
+
+template <bool SYNC>
+__global__ void __launch_bounds__(THREADS, 2) raw_gen_kernel(RawGenParams p) {
+  extern __shared__ double2 smem_raw[];
+  const int lane = threadIdx.x % FRAMES;
+  const int g = threadIdx.x / FRAMES;
+  const long long f = static_cast<long long>(blockIdx.x) * FRAMES + lane;
+  const bool live = f < p.chain.batch;
+  synthesize(p, *reinterpret_cast<SynthSmem*>(smem_raw), f, live, lane, g);
+  __syncthreads();  // the block's columns of the field are written; shared memory is free
+  const detect::Result r = detect::run<float>(
+      p.det_cfg, *reinterpret_cast<detect::Smem*>(smem_raw), f, live, lane, g);
+  if (live && g == 0) {
+    p.det[f] = r.det;
+    p.coarse[f] = r.coarse;
+    p.start[f] = r.start;
+    p.metric[f] = r.metric;
+  }
+  // detect::run ends on a barrier: the shared memory is the chain's now
+  const long long row0 = detect::frame_row(r, p.det_cfg.ns);
+  chain::run<gen::Bf16Sample, true, SYNC, true>(p.chain, *reinterpret_cast<chain::Smem*>(smem_raw),
+                                                f, live, lane, g, row0, row0 + chain::PREAMBLE);
+}
+
+template <bool SYNC>
+cudaError_t launch(const RawGenParams& p, cudaStream_t stream) {
+  auto kernel = raw_gen_kernel<SYNC>;
+  size_t smem = detect::smem_bytes(p.det_cfg.search, p.det_cfg.stride, p.det_cfg.decimated);
+  if (smem < sizeof(chain::Smem)) smem = sizeof(chain::Smem);
+  if (smem < sizeof(SynthSmem)) smem = sizeof(SynthSmem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((p.chain.batch + FRAMES - 1) / FRAMES);
+  kernel<<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ptrs: txs re/im (53, 16), tpre re/im (53, 1), w re/im (64, 53), wi re/im
+// (5, 53, 4), LTS taps re/im (64), IDFT re/im (64, 53), wc re/im (53,
+// n_taps), tscale (n_taps), seed (int32), the scratch field re/im (ns, B),
+// then the chain's outputs (7 h planes re/im, the first five null; eq
+// re/im, null; ow2, cfo, chk, evm), then det, coarse, start (int32), metric
+// (f32), offsets (int32), h_true re/im (53, B) and cfo_true (B).  Returns
+// cudaGetLastError() after the launch.
+extern "C" int raw_gen_launch(const void* const* ptrs, int n_ptrs, int batch, int ns, int n_taps,
+                              float nsc, float cfo_scale, int eq_sel, double threshold,
+                              int search, int advance, int stride, void* stream) {
+  constexpr int N_IN = 18;
+  const int span = ns - detect::FRAME - MIN_OFFSET;
+  if (n_ptrs != N_IN + chain::N_OUT_PTRS + 8 || batch <= 0 || span <= 0 ||
+      ns % detect::LAG != 0 || n_taps < 1 || n_taps > gen::MAX_TAPS || search < 1 ||
+      stride < 1 || detect::LAG % stride != 0 || eq_sel < chain::EQ_LINEAR ||
+      eq_sel > chain::EQ_MMSE)
+    return cudaErrorInvalidValue;
+  RawGenParams p;
+  float* x_re = static_cast<float*>(const_cast<void*>(ptrs[16]));
+  float* x_im = static_cast<float*>(const_cast<void*>(ptrs[17]));
+  p.det_cfg = detect::Config{x_re, x_im, static_cast<const float*>(ptrs[8]),
+                             static_cast<const float*>(ptrs[9]), batch, ns, stride, 1,
+                             search, advance, threshold};
+  chain::Params& c = p.chain;
+  c.rxp_re = c.rxl_re = x_re;
+  c.rxp_im = c.rxl_im = x_im;
+  c.txa_re = ptrs[0];
+  c.txa_im = ptrs[1];
+  c.txb_re = ptrs[2];
+  c.txb_im = ptrs[3];
+  c.w_re = static_cast<const float*>(ptrs[4]);
+  c.w_im = static_cast<const float*>(ptrs[5]);
+  c.wi_re = static_cast<const float*>(ptrs[6]);
+  c.wi_im = static_cast<const float*>(ptrs[7]);
+  chain::set_outputs(c, ptrs + N_IN);
+  if (c.eq_re != nullptr || c.evm == nullptr) return cudaErrorInvalidValue;
+  c.batch = batch;
+  c.eq_sel = eq_sel;
+  c.scale = 1.f;
+  p.v_re = static_cast<const float*>(ptrs[10]);
+  p.v_im = static_cast<const float*>(ptrs[11]);
+  p.wc_re = static_cast<const float*>(ptrs[12]);
+  p.wc_im = static_cast<const float*>(ptrs[13]);
+  p.tscale = static_cast<const float*>(ptrs[14]);
+  p.seed = static_cast<const int*>(ptrs[15]);
+  p.x_re = x_re;
+  p.x_im = x_im;
+  const void* const* rows = ptrs + N_IN + chain::N_OUT_PTRS;
+  p.det = static_cast<int*>(const_cast<void*>(rows[0]));
+  p.coarse = static_cast<int*>(const_cast<void*>(rows[1]));
+  p.start = static_cast<int*>(const_cast<void*>(rows[2]));
+  p.metric = static_cast<float*>(const_cast<void*>(rows[3]));
+  p.offs = static_cast<int*>(const_cast<void*>(rows[4]));
+  p.ht_re = static_cast<float*>(const_cast<void*>(rows[5]));
+  p.ht_im = static_cast<float*>(const_cast<void*>(rows[6]));
+  p.cfo_true = static_cast<float*>(const_cast<void*>(rows[7]));
+  p.n_taps = n_taps;
+  p.span = span;
+  p.nsc = nsc;
+  p.cfo_scale = cfo_scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return cfo_scale != 0.f ? launch<true>(p, st) : launch<false>(p, st);
+}
+
+extern "C" const char* raw_gen_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

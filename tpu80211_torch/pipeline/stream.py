@@ -1,0 +1,240 @@
+"""The device-resident stream: frames made and received on the card.
+
+The counterpart of the device part of ``tpu80211/pipeline/stream.py``
+(``make_device_stream_step``, ``run_stream_device``).  A streamed step is
+tx-constant (every frame carries the shipped capture's packet) and draws a
+fresh channel and noise per frame on the device; only per-batch summaries
+and a sampled record leave it.  Four generators:
+
+* ``"kernel"`` (the default): ``kernels.gen_chain.fused_gen_chain`` draws
+  the frames inside the chain kernel, in its stream configuration (error
+  sums per estimator; no h planes at batch width);
+* ``"xla"``: ``datasets.synthetic_sc.generate_rx_lane_major`` (torch
+  draws, the time-domain frame) into the tx-constant chain kernel;
+* ``"raw"``: ``generate_raw_lane_major`` (the frame at a random offset in a
+  raw stream, placed by the placement kernel) into the one-kernel raw
+  receiver; the summary reports detection, timing and EVM;
+* ``"kernel_raw"``: ``kernels.raw_gen_chain.gen_raw_system``, synthesis,
+  detection and the chain in one kernel.
+
+The carried state is a 0-d int32 device tensor derived from the batch's
+checksums; the kernel generators fold it into their seed on the device
+(int32 wrap-around, as the JAX step), so a step never reads the host.  The
+``xla`` and ``raw`` generators draw from a ``torch.Generator`` seeded on
+the host by (seed, batch index): folding the device state into it would
+need a host read each step, so their draws do not depend on it.  Resume is
+bit-deterministic: the state after every batch is persisted in
+``cursor.json``.
+
+Where the JAX package clamps the detected count to 1, a batch with no
+detection here reports ``evm_rms`` NaN, not a perfect 0.  The multi-chip
+(``mesh``) step is not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import time
+
+import numpy as np
+import torch
+
+from tpu80211_torch import constants as C
+from tpu80211_torch.cplx import Cplx
+from tpu80211_torch.datasets import synthetic_sc
+from tpu80211_torch.datasets.loader import load_capture
+from tpu80211_torch.kernels import fused_chain as F
+from tpu80211_torch.kernels import gen_chain as G
+from tpu80211_torch.kernels import raw_chain as R
+from tpu80211_torch.kernels import raw_gen_chain as RG
+from tpu80211_torch.ops.detect import lts_time_symbol
+
+_STREAM_ESTS = F.OUT_NAMES
+GENERATORS = ("kernel", "xla", "raw", "kernel_raw")
+_SEED_MIX = 2654435761 % 2 ** 31   # the JAX step's state multiplier
+_BATCH_MIX = 65537                 # and its batch-index multiplier
+
+
+class _Sink:
+    """Per-batch records under ``out_dir`` and the resume cursor: the
+    batches done, and the carried state after each of them."""
+
+    def __init__(self, out_dir, resume):
+        self.dir = pathlib.Path(out_dir) if out_dir else None
+        self.cursor = set()
+        self.states: dict[str, int] = {}
+        if self.dir:
+            self.dir.mkdir(parents=True, exist_ok=True)
+            cur = self.dir / "cursor.json"
+            if resume and cur.exists():
+                rec = json.loads(cur.read_text())
+                self.cursor = set(rec["done"])
+                self.states = rec.get("states", {})
+
+    def done(self, i: int) -> bool:
+        return i in self.cursor
+
+    def state_after(self, i: int):
+        """The persisted carried state after batch ``i`` (None if the cursor
+        has none)."""
+        return self.states.get(str(i))
+
+    def _write_cursor(self) -> None:
+        (self.dir / "cursor.json").write_text(
+            json.dumps({"done": sorted(self.cursor), "states": self.states}))
+
+    def path_str(self):
+        return str(self.dir) if self.dir else None
+
+
+def kernel_seed(seed: int, i: int, state: torch.Tensor) -> torch.Tensor:
+    """int32(seed + 65537·i) + state·(2654435761 mod 2³¹), wrapped to int32
+    on ``state``'s device: the kernel generators' seed for batch ``i``."""
+    base = G.wrap_i32(seed + i * _BATCH_MIX)
+    return G.wrap_i32(base + state.to(torch.int64) * _SEED_MIX).to(torch.int32)
+
+
+def next_state(checksum: torch.Tensor) -> torch.Tensor:
+    """The carried state after a batch: int32(mod(|Σ checksum|·1e3, 65536)),
+    in float32 on the device."""
+    return torch.remainder(checksum.sum().abs() * 1e3, 65536.0).to(torch.int32)
+
+
+def _stream_generator(seed: int, i: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed((seed + i * _BATCH_MIX) % 2 ** 64)
+
+
+def _raw_summary(out: dict, offsets: torch.Tensor, h: Cplx, evm_den: float) -> dict:
+    """Detection and timing rates, the EVM over detected streams (NaN when
+    none is detected), and the magnitude NMSE of h_mmse (invariant to the
+    early-extraction phase ramp, which only rotates each bin)."""
+    det = out["detected"]
+    err = out["start"] - offsets
+    in_band = (err >= -4) & (err <= -2)
+    evm2 = (torch.where(det, out["evm_sums"], 0.0).sum()
+            / (det.to(torch.float32).sum() * evm_den))
+    hm = out["h_mmse"]
+    mag_e = torch.sqrt(hm.re * hm.re + hm.im * hm.im)
+    mag_t = torch.sqrt(h.re * h.re + h.im * h.im)
+    return {
+        "detect_rate": det.to(torch.float32).mean(),
+        "timing_in_band_rate": in_band.to(torch.float32).mean(),
+        "evm_rms": torch.sqrt(evm2),
+        "h_mmse_mag_nmse": ((mag_e - mag_t) ** 2).sum() / (mag_t * mag_t).sum(),
+    }
+
+
+def make_device_stream_step(batch: int, seed: int = 0, snr_db: float = 20.0, dtype=None,
+                            sample: int = 128, sync: bool = False, gen: str = "kernel",
+                            channel_model: str | None = None, device="cuda"):
+    """Build the device-resident streamed step on ``device``.
+
+    Returns ``(step, state0)``: ``step(i, state) -> (summary, sample_h,
+    state)``.  ``summary`` maps names to 0-d device tensors: for ``kernel``
+    and ``xla`` each estimator's CFR NMSE against the true channel
+    (``h_lt_nmse`` …); for ``raw`` and ``kernel_raw`` ``detect_rate``,
+    ``timing_in_band_rate``, ``evm_rms`` and ``h_mmse_mag_nmse``.
+    ``sample_h``: the MMSE estimates of ``sample`` frames (the first of
+    the batch; with ``kernel``, of the last 128 frames).  ``dtype`` (bf16 by
+    default) is the sample storage and, with ``kernel``, eq's type.
+    ``sync`` runs the chain's CFO/CPE stages (``xla`` only)."""
+    if gen not in GENERATORS:
+        raise ValueError(f"gen must be one of {GENERATORS}, got {gen!r}")
+    dtype = torch.bfloat16 if dtype is None else dtype
+    if batch % G.LANES or batch < G.LANES:
+        raise ValueError(f"batch must be a positive multiple of {G.LANES}, got {batch}")
+    dev = torch.device(device)
+    cap = load_capture()
+
+    def planes(x) -> Cplx:
+        x = np.asarray(x)
+        return Cplx(*(torch.tensor(np.ascontiguousarray(v), dtype=torch.float32, device=dev)
+                      for v in (x.real, x.imag)))
+
+    txs, tpre = F.tx_spectra(planes(cap.tx_packet), planes(cap.tx_lptot))
+    if gen in ("raw", "kernel_raw"):
+        lts = planes(lts_time_symbol(cap.tx_lptot).numpy())
+        # EVM denominator Σ|tx|² over the blocks' bins: a problem constant
+        evm_den = float((txs.re[:, :C.N_BLOCKS].double() ** 2
+                         + txs.im[:, :C.N_BLOCKS].double() ** 2).sum())
+
+    def step(i: int, state: torch.Tensor):
+        if gen == "kernel":
+            out = G.fused_gen_chain(kernel_seed(seed, i, state), batch, txs, tpre, snr_db=snr_db,
+                                    eq_dtype=dtype, channel_model=channel_model,
+                                    stream_sums=True)
+            s = out["sums"].sum(-1)
+            summary = {name + "_nmse": s[k] / s[-1] for k, name in enumerate(_STREAM_ESTS)}
+        elif gen == "kernel_raw":
+            out = RG.gen_raw_system(kernel_seed(seed, i, state), batch, txs, tpre, lts,
+                                    snr_db=snr_db, channel_model=channel_model)
+            summary = _raw_summary(out, out["offsets"], out["h_true"], evm_den)
+        elif gen == "raw":
+            x, h, offs = synthetic_sc.generate_raw_lane_major(
+                _stream_generator(seed, i, dev), batch, txs, tpre, snr_db=snr_db, dtype=dtype,
+                channel_model=channel_model)
+            out = R.raw_rx_txconst_fused(x, lts, txs, tpre, stream_sums=True)
+            summary = _raw_summary(out, offs, h, evm_den)
+        else:
+            pkt, lp, h = synthetic_sc.generate_rx_lane_major(
+                _stream_generator(seed, i, dev), batch, txs, tpre, snr_db=snr_db, dtype=dtype,
+                channel_model=channel_model)
+            out = F.fused_rx_chain_txconst(txs, tpre, pkt, lp, sync=sync)
+            hp2 = (h.re * h.re + h.im * h.im).sum()
+            summary = {name + "_nmse": ((out[name].re - h.re) ** 2
+                                        + (out[name].im - h.im) ** 2).sum() / hp2
+                       for name in _STREAM_ESTS}
+        sample_h = out["h_mmse"].map(lambda t: t[:, :sample])
+        return summary, sample_h, next_state(out["checksum"])
+
+    return step, torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def run_stream_device(n_batches: int, batch: int, seed: int = 0, snr_db: float = 20.0,
+                      out_dir: str | None = None, resume: bool = True, sample: int = 128,
+                      gen: str = "kernel", channel_model: str | None = None,
+                      device="cuda") -> dict:
+    """Drive the device-resident stream for ``n_batches`` batches, writing
+    each batch's summaries and sampled MMSE estimates to
+    ``out_dir/stream_{i:06d}.npz``.
+
+    Steps are dispatched ahead and read back one batch behind, so the
+    readback overlaps the next batch's work.  Resume is bit-deterministic:
+    the state after each batch is restored from ``cursor.json`` for the
+    batches already done."""
+    step, state = make_device_stream_step(batch, seed, snr_db, sample=sample, gen=gen,
+                                          channel_model=channel_model, device=device)
+    sink = _Sink(out_dir, resume)
+    t0 = time.perf_counter()
+    pending = None
+    n_frames = 0
+    for i in range(n_batches):
+        if sink.done(i):
+            saved = sink.state_after(i)
+            if saved is not None:
+                state = torch.tensor(saved, dtype=torch.int32, device=state.device)
+            else:  # a cursor without states: advance by running the step again
+                _, _, state = step(i, state)
+            continue
+        summary, sample_h, state = step(i, state)
+        if pending is not None:
+            n_frames += _finish_device(pending, sink, batch)
+        pending = (i, summary, sample_h, state)
+    if pending is not None:
+        n_frames += _finish_device(pending, sink, batch)
+    dt = time.perf_counter() - t0
+    return {"frames": n_frames, "batches": n_batches, "wall_s": dt,
+            "frames_per_s": n_frames / dt if dt > 0 else None, "out_dir": sink.path_str()}
+
+
+def _finish_device(pending, sink: _Sink, batch: int) -> int:
+    i, summary, sample_h, state_after = pending
+    record = {k: v.cpu().numpy() for k, v in summary.items()}
+    record["h_mmse_sample"] = sample_h.to_complex().T.cpu().numpy()   # (sample, 53)
+    if sink.dir:
+        np.savez_compressed(sink.dir / f"stream_{i:06d}.npz", **record)
+        sink.cursor.add(i)
+        sink.states[str(i)] = int(state_after)
+        sink._write_cursor()
+    return batch
