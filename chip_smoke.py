@@ -40,7 +40,22 @@ nvcc per source, all started together), then:
    gates; a 40 kHz CFO recovered), and ``run_stream_device`` for 4 batches
    with each of the four generators, plus a bit-identical resume;
 8. times ``fused_gen_chain``, ``gen_raw_system`` and one stream step per
-   generator, kernel and plain version in turns.
+   generator, kernel and plain version in turns;
+2d. (run after 2c) holds the dense MMSE solve kernels against their plain
+   versions at a ragged B=1000 systems of bench.py's dense-solve workload
+   (sigma^2 = 0.37, normal u and rx): ``fused_rank1_solve`` and
+   ``solve_batched``, ``gauss`` and ``chol``, z within 1e-4, seven spot
+   systems within 5e-5 of numpy's f64 solve (bench.py:179-183);
+9. runs the dense MMSE path at full width: bench.py's B=8192 systems through
+   ``fused_rank1_solve`` (both methods, the gates of 2d), then the main
+   path's B=65536 frames (262144 systems) through ``sc.ps_mmse_dense``
+   (the fused kernel) and ``pipeline/rx.py::rx_chain_freq`` with
+   ``mmse_solver="dense_pallas"`` (the dense kernel): h_mmse within 5e-2 of
+   ``sc.ps_mmse_sm`` (tests/test_kernels.py:232-235), and a 1024-frame slice
+   against the plain version;
+10. times both entries x both methods at 8192 and 262144 systems, kernel and
+   plain version in turns, and ``torch.linalg.solve`` on the same
+   materialized complex64 systems (the library yardstick).
 
 Every failed check raises, so the script exits non-zero.  The last two
 lines are JSON: the kernel table (each kernel's launches on its path, max
@@ -68,9 +83,12 @@ from tpu80211_torch.kernels import _build
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
 from tpu80211_torch.kernels import gen_chain as G
+from tpu80211_torch.kernels import mmse_solve as MS
 from tpu80211_torch.kernels import raw_chain as R
 from tpu80211_torch.kernels import raw_gen_chain as RG
 from tpu80211_torch.pipeline import raw as P
+from tpu80211_torch.pipeline import rx as RXP
+from tpu80211_torch.pipeline import sc as SCP
 from tpu80211_torch.pipeline import stream as S
 
 SEED = 0
@@ -92,7 +110,7 @@ B_GEN = 32768       # generative batch (scripts/bench_stream.py, bench.py --genr
 B_GEN_SMALL = 1024  # phase 2c, and the plain version's slice of phase 7
 GEN_SEED = 7        # bench.py's generative seed
 N_STREAM = 4        # stream batches per generator in phase 7
-KERNELS = ("fused_chain", "detect", "raw_chain", "gen_chain", "raw_gen_chain")
+KERNELS = ("fused_chain", "detect", "raw_chain", "gen_chain", "raw_gen_chain", "mmse_solve")
 # the bound: the larger of bytes over the HBM rate and operations over the
 # f32 rate outside the tensor cores (NVIDIA's H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -539,9 +557,11 @@ def phase_raw(cap, dev):
     return launches, errs, (x, lts, txc, sig, noise, offs)
 
 
-def in_turns(kernel, plain) -> tuple[float, float]:
-    """plain, kernel, kernel, plain: (kernel ms, plain ms), medians."""
-    p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
+def in_turns(kernel, plain, **plain_kw) -> tuple[float, float]:
+    """plain, kernel, kernel, plain: (kernel ms, plain ms), medians;
+    ``plain_kw`` sets ``time_ms``'s calls and reps for the plain version."""
+    p1, k1, k2, p2 = (time_ms(plain, **plain_kw), time_ms(kernel), time_ms(kernel),
+                      time_ms(plain, **plain_kw))
     return statistics.median([k1, k2]), statistics.median([p1, p2])
 
 
@@ -916,6 +936,172 @@ def phase_gen_timing(gen_in, dev) -> dict:
     return t
 
 
+# -- the dense MMSE solves (phases 2d, 9, 10) --------------------------------------------------
+
+B_SOLVE = 8192           # bench.py's dense-solve batch (_bench_dense_mmse)
+S_MAIN = 4 * B_MAIN      # systems on the main path: 4 averaged blocks per frame
+SOLVE_SIGMA2 = 0.37      # bench.py:169
+SOLVE_ROW = {"fused": "mmse_solve", "dense": "mmse_solve_dense"}
+
+
+def solve_workload(n: int, dev, seed: int):
+    """bench.py's systems (bench.py:162-169): u and rx (n, 53) complex64
+    with standard normal real and imaginary parts, sigma^2 = 0.37; and the
+    materialized systems sigma^2 I + u u^H."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u, rx = (torch.complex(torch.randn(n, 53, generator=gen, device=dev),
+                           torch.randn(n, 53, generator=gen, device=dev)) for _ in range(2))
+    ow2 = torch.full((n,), SOLVE_SIGMA2, device=dev)
+    return u, rx, ow2, MS.rank1_systems(u, ow2)
+
+
+def solve(entry: str, method: str, u, rx, ow2, a, plain: bool = False) -> torch.Tensor:
+    """z (n, 53) through one entry: the kernel, or its plain version."""
+    if entry == "fused":
+        return (MS.fused_rank1_plain if plain else MS.fused_rank1_solve)(u, rx, ow2, method)
+    return (MS.solve_batched_plain if plain else MS.solve_batched)(a, rx[..., None], method)[..., 0]
+
+
+def check_solves(tag: str, n: int, dev, seed: int, entries=("fused", "dense")) -> dict:
+    """Kernel against plain for each entry and method: z within 1e-4
+    relative (two f32 eliminations in another order at condition ~300),
+    and seven spot systems within 5e-5 of numpy's f64 solve
+    (bench.py:179-183).  Returns the max abs error per kernel row."""
+    u, rx, ow2, a = solve_workload(n, dev, seed)
+    spots = list(range(0, n, max(1, n // 7)))
+    a64, rx64 = a[spots].cpu().to(torch.complex128).numpy(), rx[spots].cpu().to(torch.complex128).numpy()
+    errs = {}
+    for entry in entries:
+        for method in MS.METHODS:
+            got = solve(entry, method, u, rx, ow2, a)
+            want = solve(entry, method, u, rx, ow2, a, plain=True)
+            err = rel(got, want)
+            check(err <= 1e-4, f"{tag} {entry} {method}: z rel err {err:.3g} against plain")
+            z = got[spots].cpu().to(torch.complex128).numpy()
+            for i in range(len(spots)):
+                ref = np.linalg.solve(a64[i], rx64[i])
+                e = float(np.abs(z[i] - ref).max() / np.abs(ref).max())
+                check(e < 5e-5, f"{tag} {entry} {method}: system {spots[i]} rel err {e:.3g} against f64")
+            row = SOLVE_ROW[entry]
+            errs[row] = max(errs.get(row, 0.0), float((got - want).abs().max()))
+    return errs
+
+
+def phase_small_solve(dev) -> dict:
+    """2d: both solve kernels against their plain versions at B=1000."""
+    errs = check_solves("2d", B_SMALL, dev, SEED)
+    torch.cuda.synchronize()
+    print(f"phase 2d ok: fused_rank1_solve and solve_batched (gauss, chol) == plain at "
+          f"B={B_SMALL} systems, 7 spot systems within 5e-5 of numpy f64")
+    return errs
+
+
+def phase_solve(cap, dev):
+    """9: bench.py's shape, then the dense MMSE path at the main path's
+    B=65536 frames; returns (launches by kernel row, max abs errors)."""
+    errs = check_solves("9a", B_SOLVE, dev, SEED + 1, entries=("fused",))
+    rp, rl = main_inputs(cap, dev)  # (1200, B), (160, B) complex64, frame 0 the capture
+    tx_blocks = SCP.extract_blocks(torch.tensor(cap.tx_packet, dtype=torch.complex64, device=dev))
+    tx_pre = SCP.preamble_fft(torch.tensor(cap.tx_lptot, dtype=torch.complex64, device=dev))
+    rx_blocks, rx_pre, ow2 = SCP.extract_blocks(rp.T), SCP.preamble_fft(rl.T), SCP.noise_power(rl.T)
+    h_lt = SCP.lt_ls(tx_pre, rx_pre)
+    del rp, rl
+    torch.cuda.synchronize()
+
+    MS.launches = MS.dense_launches = 0
+    h_dense = SCP.ps_mmse_dense(tx_blocks, rx_blocks, ow2, h_lt)
+    out = RXP.rx_chain_freq(tx_pre, rx_pre, tx_blocks, rx_blocks, ow2, mmse_solver="dense_pallas")
+    torch.cuda.synchronize()
+    launches = {"mmse_solve": MS.launches, "mmse_solve_dense": MS.dense_launches}
+    for k, n in launches.items():
+        check(n > 0, f"the dense MMSE path launched no {k} kernel")
+
+    # the capture's sigma^2 (~1e-7) and SNR 30 make these systems of condition
+    # 1e5-1e7: f32 solves hold h_mmse to the JAX package's 5e-2 against the
+    # rank-1 closed form (tests/test_kernels.py:232-235, 251-252)
+    h_sm = SCP.ps_mmse_sm(tx_blocks, rx_blocks, ow2, h_lt)
+    for tag, h in (("sc.ps_mmse_dense", h_dense), ("rx_chain_freq dense_pallas", out.h_mmse)):
+        check(tuple(h.shape) == (B_MAIN, 53) and bool(torch.isfinite(h).all()), f"{tag}: shape, finite")
+        err, err0 = rel(h, h_sm), rel(h[0], h_sm[0])
+        check(err <= 5e-2 and err0 <= 5e-2, f"{tag}: h_mmse rel err {err:.3g} (frame 0 {err0:.3g}) vs sm")
+        print(f"phase 9: {tag} at B={B_MAIN} frames ({S_MAIN} systems): h_mmse rel err {err:.3g} "
+              f"against sc.ps_mmse_sm (frame 0, the capture: {err0:.3g})")
+    for k, v in out._asdict().items():
+        check(bool(torch.isfinite(v).all()), f"rx_chain_freq dense_pallas: {k} not finite")
+
+    # a 1024-frame slice against the plain version: the same inputs on the
+    # CPU, where the wrappers run it; h_mmse within 1e-2 (f32 solves in
+    # another order on systems of condition 1e5-1e7)
+    cut = lambda t: t[:B_SLICE].cpu()  # noqa: E731
+    want = SCP.ps_mmse_dense(tx_blocks.cpu(), cut(rx_blocks), cut(ow2), cut(h_lt))
+    err = rel(h_dense[:B_SLICE].cpu(), want)
+    check(err <= 1e-2, f"sc.ps_mmse_dense slice: h_mmse rel err {err:.3g} against plain")
+    errs["mmse_solve"] = max(errs["mmse_solve"], float((h_dense[:B_SLICE].cpu() - want).abs().max()))
+    want = RXP.rx_chain_freq(tx_pre.cpu(), cut(rx_pre), tx_blocks.cpu(), cut(rx_blocks), cut(ow2),
+                             mmse_solver="dense_pallas")
+    for k in RXP.RxOutputs._fields:
+        g, w = getattr(out, k)[:B_SLICE].cpu(), getattr(want, k)
+        tol = 1e-2 if k == "h_mmse" else 1e-3 if k == "eq" else 1e-4
+        err = rel(g, w)
+        check(err <= tol, f"rx_chain_freq slice: {k} rel err {err:.3g} against the CPU run")
+        if k == "h_mmse":
+            errs["mmse_solve_dense"] = float((g - w).abs().max())
+    torch.cuda.synchronize()
+    print(f"phase 9 ok: bench.py's B={B_SOLVE} fused solves (gauss, chol) pass its gates; the "
+          f"dense MMSE path at B={B_MAIN} frames is within 5e-2 of sm, a {B_SLICE}-frame slice "
+          f"equals the plain version; launches {launches}")
+    return launches, errs
+
+
+def solve_cmacs(method: str, fused: bool, n: int = 53) -> int:
+    """Complex multiply-adds per system, from the shapes: LU takes, at each
+    column, r = n-1-j rows times (r columns + the multiplier + the rhs);
+    LL^H the trailing lower triangle r(r+1)/2 plus the column scale and the
+    forward solve; both add the back substitution n(n-1)/2 + n; the fused
+    kernel builds the system first (n^2 entries, the lower triangle for
+    LL^H)."""
+    if method == "chol":
+        factor = sum(r * (r + 1) // 2 + 2 * r for r in range(1, n))
+        build = n * (n + 1) // 2
+    else:
+        factor = sum(r * (r + 2) for r in range(1, n))
+        build = n * n
+    return factor + n * (n - 1) // 2 + n + (build if fused else 0)
+
+
+def phase_solve_timing(dev) -> tuple[dict, dict]:
+    """10: each entry and method at 8192 and 262144 systems, kernel and
+    plain version in turns, and torch.linalg.solve on the same complex64
+    systems; returns (times, bounds), keyed by (entry, method, n) and, for
+    the library call, ("library", n)."""
+    t, lower = {}, {}
+    for n in (B_SOLVE, S_MAIN):
+        u, rx, ow2, a = solve_workload(n, dev, SEED + 2)
+        plain_kw = dict(calls=1, reps=3) if n > B_SOLVE else {}
+        for entry in SOLVE_ROW:
+            for method in MS.METHODS:
+                t[entry, method, n] = in_turns(
+                    lambda: solve(entry, method, u, rx, ow2, a),
+                    lambda: solve(entry, method, u, rx, ow2, a, plain=True), **plain_kw)
+                z = solve(entry, method, u, rx, ow2, a)
+                ins = (u, rx, ow2) if entry == "fused" else (a, rx)
+                lower[entry, method, n] = bound(8 * n * solve_cmacs(method, entry == "fused"),
+                                                nbytes(*ins, z))
+        rhs = rx[..., None]
+        t["library", n] = time_ms(lambda: torch.linalg.solve(a, rhs),
+                                  **(dict(calls=2, reps=3) if n > B_SOLVE else {}))
+        del u, rx, ow2, a, rhs, z
+    torch.cuda.synchronize()
+    for (entry, method, n), (k_ms, p_ms) in ((k, v) for k, v in t.items() if k[0] != "library"):
+        b_ms, b_by = lower[entry, method, n]
+        print(f"phase 10: {entry} {method} n={n}: kernel {k_ms:.4f} ms = {n / k_ms * 1e3:.4g} "
+              f"solves/s; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    for n in (B_SOLVE, S_MAIN):
+        ms = t["library", n]
+        print(f"phase 10: torch.linalg.solve n={n} complex64: {ms:.4f} ms = {n / ms * 1e3:.4g} solves/s")
+    return t, lower
+
+
 # operations per frame or stream, from the shapes: an f32 or 32-bit integer
 # operation counts 1, a complex multiply-add 8, a log, sqrt, sin or cos 1
 DFT_OPS = 16 * 53 * 64 * 8   # the chain's 16 DFTs of 53 bins from 64 samples
@@ -1017,13 +1203,23 @@ def main() -> int:
     phase_small(cap, dev)
     small_errs = phase_small_raw(cap, dev)
     small_errs.update(phase_small_gen(cap, dev))
+    solve_errs = phase_small_solve(dev)
     launches, max_abs, main_in = phase_main(cap, dev)
     k_ms, p_ms = phase_timing(*main_in, dev)
     raw_launches, raw_errs, raw_in = phase_raw(cap, dev)
     t = phase_raw_timing(raw_in, main_in, dev)
     gen_launches, gen_errs, gen_in = phase_gen(cap, dev)
     t.update(phase_gen_timing(gen_in, dev))
+    solve_launches, errs9 = phase_solve(cap, dev)
+    solve_t, solve_lower = phase_solve_timing(dev)
     lower = bounds(main_in, raw_in, gen_in, dev)
+    # the solve rows at the main path's shape and method (gauss, the
+    # default of sc.ps_mmse_dense and of the dense_pallas solver); the bound
+    # is the least work that computes z, over both methods: LL^H, since the
+    # systems are Hermitian positive definite
+    for entry, row in SOLVE_ROW.items():
+        t[row] = solve_t[entry, "gauss", S_MAIN]
+        lower[row] = min((solve_lower[entry, m, S_MAIN] for m in MS.METHODS), key=lambda b: b[0])
     src = "tpu80211_torch/kernels/csrc/"
     rows = [
         ("fused_chain", "fused_chain.cu", "tpu80211/kernels/fused_chain.py:93", launches,
@@ -1040,12 +1236,21 @@ def main() -> int:
         ("raw_gen_chain", "raw_gen_chain.cu", "tpu80211/kernels/raw_gen_chain.py:65",
          gen_launches["raw_gen_chain"], max(small_errs["raw_gen_chain"], gen_errs["raw_gen_chain"]),
          t["raw_gen_chain"]),
+        ("mmse_solve", "mmse_solve.cu", "tpu80211/kernels/mmse_solve.py:651",
+         solve_launches["mmse_solve"], max(solve_errs["mmse_solve"], errs9["mmse_solve"]),
+         t["mmse_solve"]),
+        ("mmse_solve_dense", "mmse_solve.cu", "tpu80211/kernels/mmse_solve.py:759",
+         solve_launches["mmse_solve_dense"],
+         max(solve_errs["mmse_solve_dense"], errs9["mmse_solve_dense"]), t["mmse_solve_dense"]),
     ]
-    # no single PyTorch call computes any of these functions: library_ms is null
+    # torch.linalg.solve on the materialized systems computes the solves (for
+    # the fused row without building them); no single PyTorch call computes
+    # the other functions, whose library_ms is null
+    library = {row: solve_t["library", S_MAIN] for row in SOLVE_ROW.values()}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src + source, "replaces": replaces,
         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": lower[name][0], "bound_by": lower[name][1], "library_ms": None,
+        "bound_ms": lower[name][0], "bound_by": lower[name][1], "library_ms": library.get(name),
     } for name, source, replaces, n, err, (ms, plain_ms) in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,13 @@ from tpu80211_torch.datasets.loader import load_capture
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
 from tpu80211_torch.kernels import gen_chain as G
+from tpu80211_torch.kernels import mmse_solve as M
 from tpu80211_torch.kernels import raw_chain as R
 from tpu80211_torch.kernels import raw_gen_chain as RG
+from tpu80211_torch.models import ps_mmse
 from tpu80211_torch.pipeline import raw as P
+from tpu80211_torch.pipeline import rx as RX
+from tpu80211_torch.pipeline import sc as SCH
 from tpu80211_torch.pipeline import stream as S
 
 from _torch_inputs import (TOL, assert_matches, lane_major, lts_taps, make_frames, make_streams,
@@ -344,3 +348,86 @@ def test_stream_step_on_the_card(gen, dev):
         assert v.device.type == "cuda" and bool(torch.isfinite(v)), k
         assert torch.equal(v, again[k]), k
     assert torch.equal(sample_h.re, sample_b.re)
+
+
+# -- the dense MMSE solves --------------------------------------------------------------------
+
+
+def _solve_systems(dev, b: int = B):
+    """bench.py's systems (bench.py:151-183): u, rx (b, 53) complex64 with
+    standard normal parts, σ² = 0.37 (b,), on the card."""
+    rng = np.random.default_rng(31)
+    u, rx = (torch.tensor(rng.standard_normal((b, 53)) + 1j * rng.standard_normal((b, 53)),
+                          dtype=torch.complex64, device=dev) for _ in range(2))
+    return u, rx, torch.full((b,), 0.37, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gauss", "chol"])
+@pytest.mark.parametrize("entry", ["fused", "dense"])
+def test_mmse_solve_kernel_matches_plain(entry, method, dev):
+    """At a ragged B: z within 1e-4 of the plain version (two f32
+    eliminations in another order, condition ~300), and seven spot systems
+    within 5e-5 of numpy's f64 solve (bench.py:179-183)."""
+    u, rx, ow2 = _solve_systems(dev)
+    a = M.rank1_systems(u, ow2)
+    before = (M.launches, M.dense_launches)
+    if entry == "fused":
+        got = M.fused_rank1_solve(u, rx, ow2, method)
+        want = M.fused_rank1_plain(u, rx, ow2, method)
+    else:
+        got = M.solve_batched(a, rx[..., None], method)[..., 0]
+        want = M.solve_batched_plain(a, rx[..., None], method)[..., 0]
+    torch.cuda.synchronize()
+    assert (M.launches, M.dense_launches) == (before[0] + (entry == "fused"),
+                                              before[1] + (entry == "dense"))
+    assert got.dtype == torch.complex64 and tuple(got.shape) == (B, 53)
+    assert rel(to_np(got), to_np(want)) < 1e-4
+    a64, rx64, z = (to_np(t) for t in (a, rx, got))
+    for i in range(0, B, B // 7):
+        ref = np.linalg.solve(a64[i], rx64[i])
+        assert rel(z[i], ref) < 5e-5, i
+
+
+@pytest.mark.cuda
+def test_mmse_solve_launcher_refuses_cpu_tensors(dev):
+    u, rx, ow2 = (t.cpu() for t in _solve_systems(dev, 4))
+    with pytest.raises(RuntimeError, match="CUDA tensors only"):
+        M._launch(u, rx, ow2, "chol")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gauss", "chol"])
+def test_mmse_solve_complex128_in_complex128_out(method, dev):
+    u, rx, ow2 = _solve_systems(dev, 64)
+    u128, rx128 = u.to(torch.complex128), rx.to(torch.complex128)
+    z = M.fused_rank1_solve(u128, rx128, ow2, method)
+    zd = M.solve_batched(M.rank1_systems(u128, ow2.double()), rx128[..., None], method)
+    assert z.dtype == zd.dtype == torch.complex128 and tuple(zd.shape) == (64, 53, 1)
+    assert torch.equal(z, M.fused_rank1_solve(u, rx, ow2, method).to(torch.complex128))
+    assert rel(to_np(zd[..., 0]), to_np(z)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_dense_mmse_paths_launch_the_kernels(dev):
+    """ps_mmse(solver="dense_pallas"), rx_chain(mmse_solver="dense_pallas")
+    and sc.ps_mmse_dense reach the kernels on CUDA tensors and agree with
+    their CPU runs (the plain versions) at the f32 tolerance of
+    well-conditioned systems (SNR 10 dB frames)."""
+    frames = make_frames(seed=12, b=64, snr_db=10.0)
+    cpu = [torch.tensor(x) for x in frames]
+    card = [t.to(dev) for t in cpu]
+    before = (M.launches, M.dense_launches)
+    got = RX.rx_chain(*card, mmse_solver="dense_pallas")
+    torch.cuda.synchronize()
+    assert M.dense_launches == before[1] + 1
+    want = RX.rx_chain(*cpu, mmse_solver="dense_pallas")
+    assert rel(to_np(got.h_mmse), to_np(want.h_mmse)) < 1e-3
+    tx_blocks, rx_blocks = SCH.extract_blocks(card[0]), SCH.extract_blocks(card[1])
+    h_lt, ow2 = SCH.lt_ls(*(SCH.preamble_fft(t) for t in card[2:])), SCH.noise_power(card[3])
+    h = ps_mmse(tx_blocks, rx_blocks, ow2, h_lt, solver="dense_pallas")
+    dense = SCH.ps_mmse_dense(tx_blocks, rx_blocks, ow2, h_lt)
+    torch.cuda.synchronize()
+    assert (M.launches, M.dense_launches) == (before[0] + 1, before[1] + 2)
+    sm = SCH.ps_mmse_sm(tx_blocks, rx_blocks, ow2, h_lt)
+    assert rel(to_np(h), to_np(sm)) < 1e-3 and rel(to_np(dense), to_np(sm)) < 1e-3

@@ -26,7 +26,11 @@ def test_package_imports_no_jax():
     assert {"tpu80211_torch.kernels.fused_chain", "tpu80211_torch.pipeline.sc",
             "tpu80211_torch.kernels.gen_chain", "tpu80211_torch.kernels.raw_gen_chain",
             "tpu80211_torch.pipeline.stream", "tpu80211_torch.datasets.synthetic",
-            "tpu80211_torch.datasets.synthetic_sc"} <= set(mods)
+            "tpu80211_torch.datasets.synthetic_sc", "tpu80211_torch.kernels.mmse_solve",
+            "tpu80211_torch.models", "tpu80211_torch.models.lt_ls",
+            "tpu80211_torch.models.ps_interp", "tpu80211_torch.models.ps_mmse",
+            "tpu80211_torch.pipeline.rx", "tpu80211_torch.ops.linalg",
+            "tpu80211_torch.ops.blocks", "tpu80211_torch.ops.equalize"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpu80211.')))\n"

@@ -1,7 +1,10 @@
-"""Estimator semantics selector (the counterpart of ``tpu80211/config.py``)."""
+"""Run configuration and the estimator semantics selector (the counterpart
+of ``tpu80211/config.py``: the same fields, defaults and strings, so one
+configuration means the same thing in both packages)."""
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 
@@ -24,3 +27,38 @@ class EstimatorMode(enum.Enum):
     MATH = "math"
     MATLAB = "matlab"
     C_PARITY = "c_parity"
+
+
+ESTIMATOR_NAMES = (
+    "lt_ls", "ps_linear", "ps_cubic", "ps_sinc", "ps_spline", "ps_wiener",
+    "ps_mmse",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """One run's settings, field for field those of ``tpu80211.config.Config``
+    but for its mesh shape (``dp``, ``blk``): the port has no mesh yet.
+
+    ``mmse_solver="dense_pallas"`` names the solver backed by the
+    hand-written solve kernel (``kernels/mmse_solve.py``); the name is the
+    JAX package's, kept so that one configuration selects the same solver
+    in both packages."""
+
+    # which estimators to run; "all" expands to ESTIMATOR_NAMES
+    estimators: tuple = ESTIMATOR_NAMES
+    mode: EstimatorMode = EstimatorMode.MATH
+
+    # batch of concurrent frames processed per step
+    batch: int = 1024
+    # complex compute dtype: "complex64", or "complex128" for parity runs
+    dtype: str = "complex64"
+
+    # MMSE solve strategy: "sm" (Sherman-Morrison rank-1, no solve),
+    # "dense" (torch.linalg.solve on the built 53x53 systems — the
+    # reference's computational shape), "dense_pallas" (the same systems
+    # through the hand-written solve kernel)
+    mmse_solver: str = "sm"
+
+    # number of blocks averaged into pilot-based estimates
+    avg_blocks: int = 4
