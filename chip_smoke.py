@@ -53,7 +53,10 @@ nvcc per source, all started together), then:
    ``mmse_solver="dense_pallas"`` (the dense kernel): h_mmse within 5e-2 of
    ``sc.ps_mmse_sm`` (tests/test_kernels.py:232-235), and a 1024-frame slice
    against the plain version;
-10. times both entries x both methods at 8192 and 262144 systems, kernel and
+10. prints, for each solve kernel's four instantiations, its registers,
+   spill bytes, shared bytes and resident systems per SM, and the
+   multiply-adds and shared loads its factorization issues per system; then
+   times both entries x both methods at 8192 and 262144 systems, kernel and
    plain version in turns, and ``torch.linalg.solve`` on the same
    materialized complex64 systems (the library yardstick).
 
@@ -1069,11 +1072,45 @@ def solve_cmacs(method: str, fused: bool, n: int = 53) -> int:
     return factor + n * (n - 1) // 2 + n + (build if fused else 0)
 
 
+def issued_per_system(method: str) -> tuple[int, int]:
+    """Complex multiply-adds and shared loads that the solve kernel's
+    factorization issues per system, over its 64 threads (csrc/mmse_solve.cu):
+    at step j = 8·jb + jj each thread updates its 7×7 register tiles from
+    tile jb on, all of them for LU; for LL^H those on and below the diagonal
+    and the last tile column (in warp 1, which holds the right-hand side;
+    warp 0 only its diagonal tile).  Warp w skips tile column jb once its
+    columns 4w..4w+3 are all <= j.  A thread loads one multiplier per tile
+    row and one row value per tile column (LL^H: the right-hand side's
+    value, one load)."""
+    cmacs = loads = 0
+    for jb in range(7):
+        m = 7 - jb
+        for jj in range(8 if jb < 6 else 53 - 48):
+            for warp in (0, 1):
+                skip = jj >= 4 * warp + 3 and (method == "gauss" or jb < 6)
+                if method == "gauss":
+                    tiles, lds = m * m, 2 * m
+                else:
+                    tiles = sum(7 - b for b in range(jb, 6)) + (m if warp else 1)
+                    lds = m + max(m - 1, 0) + 1
+                cmacs += 32 * (tiles - skip * m)
+                loads += 32 * (lds - skip)
+    return cmacs, loads
+
+
 def phase_solve_timing(dev) -> tuple[dict, dict]:
-    """10: each entry and method at 8192 and 262144 systems, kernel and
-    plain version in turns, and torch.linalg.solve on the same complex64
-    systems; returns (times, bounds), keyed by (entry, method, n) and, for
-    the library call, ("library", n)."""
+    """10: each solve kernel's build and occupancy; then each entry and
+    method at 8192 and 262144 systems, kernel and plain version in turns,
+    and torch.linalg.solve on the same complex64 systems; returns (times,
+    bounds), keyed by (entry, method, n) and, for the library call,
+    ("library", n)."""
+    for entry in SOLVE_ROW:
+        for method in MS.METHODS:
+            at, (cmacs, loads) = MS.kernel_attributes(entry, method), issued_per_system(method)
+            print(f"phase 10: {entry} {method} kernel: {at['registers']} registers, "
+                  f"{at['local_bytes']} B local (spill) a thread, {at['shared_bytes']} B shared a "
+                  f"block, {at['blocks_per_sm']} systems per SM; its factorization issues {cmacs} "
+                  f"complex multiply-adds and {loads} shared loads per system")
     t, lower = {}, {}
     for n in (B_SOLVE, S_MAIN):
         u, rx, ow2, a = solve_workload(n, dev, SEED + 2)

@@ -431,3 +431,128 @@ def test_dense_mmse_paths_launch_the_kernels(dev):
     assert (M.launches, M.dense_launches) == (before[0] + 1, before[1] + 2)
     sm = SCH.ps_mmse_sm(tx_blocks, rx_blocks, ow2, h_lt)
     assert rel(to_np(h), to_np(sm)) < 1e-3 and rel(to_np(dense), to_np(sm)) < 1e-3
+
+
+def _check_solves(entry: str, method: str, u, rx, ow2, tol: float = 1e-4) -> torch.Tensor:
+    """One launch of the kernel against the plain version on the same
+    systems: z within ``tol`` relative, where the plain z is finite.
+    Returns the kernel's z."""
+    if entry == "fused":
+        got = M.fused_rank1_solve(u, rx, ow2, method)
+        want = M.fused_rank1_plain(u, rx, ow2, method)
+    else:
+        a = M.rank1_systems(u, ow2)
+        got = M.solve_batched(a, rx[..., None], method)[..., 0]
+        want = M.solve_batched_plain(a, rx[..., None], method)[..., 0]
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == tuple(rx.shape)
+    ok = torch.isfinite(want).all(dim=-1)
+    assert rel(to_np(got[ok]), to_np(want[ok])) < tol
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 8, 9, 8193])
+@pytest.mark.parametrize("method", ["gauss", "chol"])
+@pytest.mark.parametrize("entry", ["fused", "dense"])
+def test_mmse_solve_batch_edges(entry, method, b, dev):
+    """Batches at the edges of a block's 8-row grid and past 8,192."""
+    _check_solves(entry, method, *_solve_systems(dev, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gauss", "chol"])
+@pytest.mark.parametrize("entry", ["fused", "dense"])
+def test_mmse_solve_occupancy_edges(entry, method, dev):
+    """The compiled kernel spills nothing and keeps several systems on an
+    SM; batches one short of and one past the resident systems of one SM
+    and of the whole card (one system a block) give the plain version's z."""
+    at = M.kernel_attributes(entry, method)
+    assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 2, at
+    per_sm = at["blocks_per_sm"]
+    wave = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in (per_sm - 1, per_sm + 1, wave - 1, wave + 1):
+        _check_solves(entry, method, *_solve_systems(dev, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gauss", "chol"])
+@pytest.mark.parametrize("entry", ["fused", "dense"])
+def test_mmse_solve_odd_offset_slice(entry, method, dev):
+    """A slice that starts at system 1: its u, rx and systems lie 8 bytes
+    off a 16-byte boundary (424 and 22,472 bytes a system), and the kernel
+    reads them in place."""
+    u, rx, ow2 = _solve_systems(dev, 65)
+    a = M.rank1_systems(u, ow2)
+    assert u[1:].data_ptr() % 16 == 8 and a[1:].data_ptr() % 16 == 8
+    if entry == "fused":
+        got = M.fused_rank1_solve(u[1:], rx[1:], ow2[1:], method)
+        want = M.fused_rank1_plain(u, rx, ow2, method)[1:]
+    else:
+        got = M.solve_batched(a[1:], rx[1:, :, None], method)[..., 0]
+        want = M.solve_batched_plain(a, rx[..., None], method)[1:, :, 0]
+    torch.cuda.synchronize()
+    assert rel(to_np(got), to_np(want)) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gauss", "chol"])
+@pytest.mark.parametrize("entry", ["fused", "dense"])
+def test_mmse_solve_nan_system_stays_in_its_block(entry, method, dev):
+    """A system full of NaN gives NaN and leaves every other system's z as
+    the plain version has it."""
+    u, rx, ow2 = _solve_systems(dev, 40)
+    u[17] = float("nan")
+    z = _check_solves(entry, method, u, rx, ow2)
+    assert not bool(torch.isfinite(z[17]).any())
+    assert bool(torch.isfinite(z[torch.arange(40, device=dev) != 17]).all())
+
+
+def _capture_like_frames(b: int, seed: int = 21):
+    """b frames batch-major, complex64 numpy, as in make_frames: the
+    capture's tx packet, its rx packet under a random phase per frame plus
+    AWGN at SNR 30 (chip_smoke's main path), then the tx and rx preambles
+    likewise.  The capture's σ² ≈ 1e-7 makes MMSE systems of condition
+    1e5-1e7."""
+    cap = load_capture()
+    rng = np.random.default_rng(seed)
+    rot = np.exp(2j * np.pi * rng.uniform(size=b))[:, None]
+
+    def frames(x):
+        p = np.mean(np.abs(x) ** 2) / 1e3
+        n = (rng.standard_normal((b, x.size)) + 1j * rng.standard_normal((b, x.size))) / np.sqrt(2)
+        return (x[None, :] * rot + np.sqrt(p) * n).astype(np.complex64)
+
+    return (np.broadcast_to(cap.tx_packet, (b, cap.tx_packet.size)).astype(np.complex64),
+            frames(cap.rx_packet), np.broadcast_to(cap.tx_lptot, (b, 160)).astype(np.complex64),
+            frames(cap.rx_lptot))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gauss", "chol"])
+@pytest.mark.parametrize("entry", ["fused", "dense"])
+def test_mmse_solve_capture_like_ill_conditioned(entry, method, dev):
+    """The MMSE systems of capture-like frames (σ² ≈ 1e-7): z is good to a
+    few percent at best in f32, so the estimate h = v·(uᴴz) is held, as on
+    the main path: within 1e-2 of the plain version and 5e-2 of the rank-1
+    closed form (tests/test_kernels.py:232-235)."""
+    tx, rxp, txl, rxl = (torch.tensor(x, device=dev) for x in _capture_like_frames(256))
+    tx_blocks, rx_blocks = SCH.extract_blocks(tx), SCH.extract_blocks(rxp)
+    h_lt, ow2 = SCH.lt_ls(SCH.preamble_fft(txl), SCH.preamble_fft(rxl)), SCH.noise_power(rxl)
+    assert float(ow2.median()) < 1e-5
+    v = h_lt[:, None, :]
+    u, rx = tx_blocks[:, :4] * v, rx_blocks[:, :4]
+    w2 = torch.broadcast_to(ow2[:, None], u.shape[:-1])
+    est = {}
+    for plain in (False, True):
+        if entry == "fused":
+            fn = M.fused_rank1_plain if plain else M.fused_rank1_solve
+            z = fn(u, rx, w2, method)
+        else:
+            fn = M.solve_batched_plain if plain else M.solve_batched
+            z = fn(M.rank1_systems(u, w2), rx[..., None], method)[..., 0]
+        est[plain] = (v * (u.conj() * z).sum(-1, keepdim=True)).mean(dim=-2)
+    torch.cuda.synchronize()
+    sm = SCH.ps_mmse_sm(tx_blocks, rx_blocks, ow2, h_lt)
+    assert rel(to_np(est[False]), to_np(est[True])) < 1e-2
+    assert rel(to_np(est[False]), to_np(sm)) < 5e-2

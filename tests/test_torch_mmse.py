@@ -15,6 +15,7 @@ import torch
 
 from tpu80211.kernels import mmse_solve as jms
 from tpu80211_torch.kernels import mmse_solve as M
+from tpu80211_torch.kernels import mmse_solve_variants as V
 
 from _torch_inputs import jax_planes, rel, to_np
 
@@ -137,3 +138,48 @@ def test_bad_arguments_raise(bad):
             M.fused_rank1_solve(tu.real, trx.real, ow2)
         else:
             M.solve_batched(torch.tensor(_dense(u, ow2)), trx)
+
+
+@pytest.mark.parametrize("entry", ["fused", "dense"])
+def test_prepare_passes_odd_slices_in_place(entry):
+    """A slice from system 1 on starts 8 bytes off a 16-byte boundary (a
+    system is 22,472 bytes, a row 424; σ² 4 bytes off); `_prepare_*` hands
+    it to the kernel in place, with no silent copy, and the kernel reads one
+    element at a time."""
+    u, rx, ow2, _ = _systems(seed=9, b=5)
+    tu, trx, tw = torch.tensor(u), torch.tensor(rx), torch.tensor(ow2)
+    if entry == "fused":
+        ins = (tu[1:], trx[1:], tw[1:])
+        outs = M._prepare_fused(*ins, "gauss")
+    else:
+        ins = (torch.tensor(_dense(u, ow2))[1:], trx[1:, :, None])
+        outs = M._prepare_dense(*ins, "chol")
+    for t, o in zip(ins, outs):
+        assert o.data_ptr() == t.data_ptr() and o.is_contiguous()
+        M._require_aligned(o)
+    assert outs[0].data_ptr() % 16 == 8
+
+
+def test_require_aligned_refuses_a_misaligned_buffer():
+    """A complex64 array wrapped from a buffer 4 bytes off: the launcher's
+    alignment check raises before any kernel could read it."""
+    raw = bytearray(8 * 53 + 4)
+    off = torch.from_numpy(np.frombuffer(raw, np.complex64, count=53, offset=4))
+    assert off.data_ptr() % 8 == 4
+    with pytest.raises(ValueError, match="want 8-byte alignment"):
+        M._require_aligned(off)
+    M._require_aligned(torch.from_numpy(np.frombuffer(raw, np.complex64, count=53)))
+
+
+@pytest.mark.parametrize("entry, method", [("fused", "lu"), ("batched", "chol")])
+def test_kernel_attributes_checks_its_arguments(entry, method):
+    """Bad names raise before anything is built (no nvcc here)."""
+    with pytest.raises(ValueError):
+        M.kernel_attributes(entry, method)
+
+
+@pytest.mark.parametrize("name", sorted(V.DIAGNOSTICS))
+def test_diagnostic_variants_still_apply_to_the_kernel_source(name):
+    """Each diagnostic build of mmse_solve_variants edits text that the
+    kernel's source still holds (the edit raises otherwise)."""
+    assert V.variant_source(V.DIAGNOSTICS[name]) != V.SOURCE.read_text()

@@ -7,7 +7,7 @@ estimators never solve it (the rank-1 closed form, ``models/ps_mmse.py``
 solver "sm"); these entries keep the reference's computational shape:
 
 * ``fused_rank1_solve(u, rx, ow2)``: z = (σ²I + u·uᴴ)⁻¹·rx, the system
-  built in the kernel's shared memory from u and σ², so it never touches
+  built in the kernel's registers from u and σ², so it never touches
   device memory (TPU kernel #8, ``_fused_kernel``);
 * ``solve_batched(a, rhs)``: the same solve on materialized systems (TPU
   kernel #9, ``_dense_kernel``), the counterpart of
@@ -17,8 +17,12 @@ solver "sm"); these entries keep the reference's computational shape:
 positive definite systems) or "chol" (LLᴴ).  Both compute in complex64
 (f32), as the TPU kernels do, and return the input's dtype.  One
 hand-written CUDA kernel (``csrc/mmse_solve.cu``) serves both entries and
-both methods.  Unlike the TPU kernels, the system is 53×53 (no pad to 64)
-and any batch size is taken (no 128-lane tiles).
+both methods: one block of 64 threads per system, the factor in registers
+(the design is in the source's header).  Unlike the TPU kernels, the
+system is 53×53 (no pad to 64) and any batch size is taken (no 128-lane
+tiles).  The kernel reads and writes complex values 8 bytes at a time, so
+any complex64 tensor will do, including a slice that starts at an odd
+system (8 bytes off a 16-byte boundary, since a system is 22,472 bytes).
 
 ``fused_rank1_plain`` and ``solve_batched_plain`` are the same functions in
 plain PyTorch: the textbook column loop, batched over systems at f32 (the
@@ -182,10 +186,38 @@ def _kernel_fn():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    attrs = lib.mmse_solve_attributes
+    attrs.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    attrs.restype = ctypes.c_int
     err_string = lib.mmse_solve_error_string
     err_string.argtypes = [ctypes.c_int]
     err_string.restype = ctypes.c_char_p
-    return fn, err_string
+    return fn, attrs, err_string
+
+
+def kernel_attributes(entry: str, method: str) -> dict:
+    """The compiled kernel of one instantiation ("fused" or "dense" ×
+    ``method``) on the current card: registers and local (spill) bytes a
+    thread, static shared bytes a block, and resident blocks per SM, which
+    are systems per SM (one system a block)."""
+    _check_method(method)
+    if entry not in ("fused", "dense"):
+        raise ValueError(f"entry must be 'fused' or 'dense', got {entry!r}")
+    _, attrs, err_string = _kernel_fn()
+    out = (ctypes.c_int * 4)()
+    raise_on_error(attrs(int(entry == "fused"), METHODS.index(method), out), "mmse_solve",
+                   err_string)
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
+
+
+def _require_aligned(t: torch.Tensor) -> None:
+    """The kernel loads and stores one element at a time (8 bytes of
+    complex64, 4 of σ²): raise unless ``t`` starts on a multiple of its
+    element size (every tensor that PyTorch allocates or slices does; a
+    buffer wrapped from elsewhere may not)."""
+    if t.data_ptr() % t.element_size():
+        raise ValueError(f"kernel input at address {t.data_ptr():#x}: want "
+                         f"{t.element_size()}-byte alignment")
 
 
 def _launch(mat: torch.Tensor, rhs: torch.Tensor, ow2: torch.Tensor | None,
@@ -198,12 +230,13 @@ def _launch(mat: torch.Tensor, rhs: torch.Tensor, ow2: torch.Tensor | None,
             require_cuda(t)
             if t.device != mat.device:
                 raise ValueError(f"inputs on {t.device} and {mat.device}")
+            _require_aligned(t)
     z = torch.empty_like(rhs)
     if rhs.shape[0] == 0:
         return z
     if rhs.shape[0] > 2**31 - 1:
         raise ValueError(f"{rhs.shape[0]} systems: at most 2**31 - 1 per launch")
-    fn, err_string = _kernel_fn()
+    fn, _, err_string = _kernel_fn()
     dev = mat.device
     with torch.cuda.device(dev):
         err = fn(mat.data_ptr(), rhs.data_ptr(), None if ow2 is None else ow2.data_ptr(),
