@@ -28,7 +28,8 @@ nvcc per source, all started together), then:
    [-4, -2], finite checksum, EVM) and a 1024-stream slice against the
    plain version;
 6. times the raw receiver, detection, placement and the synced chain
-   against their plain versions;
+   against their plain versions, and prints the placement kernel's
+   registers, spills, shared bytes, blocks per SM and strip width;
 2c. (run after 2b) holds the generative kernels against their plain
    versions at B=1024: ``fused_gen_chain`` in full and stream mode
    (channel models None and 'A', SNR 20 and 35; the stream record against
@@ -40,7 +41,10 @@ nvcc per source, all started together), then:
    gates; a 40 kHz CFO recovered), and ``run_stream_device`` for 4 batches
    with each of the four generators, plus a bit-identical resume;
 8. times ``fused_gen_chain``, ``gen_raw_system`` and one stream step per
-   generator, kernel and plain version in turns;
+   generator, kernel and plain version in turns; the raw receiver alone on
+   ``gen_raw_system``'s own field (what is left is the synthesis); and the
+   generative raw kernel's registers, spills, shared bytes and blocks per
+   SM;
 2d. (run after 2c) holds the dense MMSE solve kernels against their plain
    versions at a ragged B=1000 systems of bench.py's dense-solve workload
    (sigma^2 = 0.37, normal u and rx): ``fused_rank1_solve`` and
@@ -589,7 +593,12 @@ def phase_raw_timing(raw_in, main_in, dev) -> dict:
     pk, lpm, txm = main_in
     t["chain_sync"] = in_turns(lambda: F.fused_chain(pk, lpm, txm, consts, sync=True),
                                lambda: F.fused_chain_plain(pk, lpm, txm, consts, sync=True))
+    at = D.place_attributes(sig.re.dtype, noise.re.dtype, NS, B_RAW)
     torch.cuda.synchronize()
+    print(f"phase 6: place kernel ({sig.re.dtype} sig, {noise.re.dtype} noise, NS={NS}): "
+          f"{at['registers']} registers, {at['local_bytes']} B local (spill) a thread, "
+          f"{at['shared_bytes']} B shared a block, {at['blocks_per_sm']} blocks per SM, "
+          f"{at['strip']} streams a strip")
     for name, n, unit in (("raw_chain16", B_RAW, "streams"), ("raw_chain32", B_RAW, "streams"),
                           ("detect", B_RAW, "streams"), ("place", B_RAW, "streams"),
                           ("chain_sync", B_MAIN, "frames")):
@@ -748,13 +757,15 @@ def phase_small_gen(cap, dev) -> dict:
         check_stream_record(tag, st, full)
     for kw in (dict(), dict(cfo_khz=40.0, equalize_with="h_mmse"),
                dict(channel_model="A", snr_db=35.0, equalize_with="h_wiener")):
-        got = RG.gen_raw_system(SEED + 5, B_GEN_SMALL, *txc, lts, **kw)
-        want = RG.gen_raw_plain(SEED + 5, B_GEN_SMALL, *txc, lts, **kw)
+        got = RG.gen_raw_system(SEED + 5, B_GEN_SMALL, *txc, lts, return_field=True, **kw)
+        want = RG.gen_raw_plain(SEED + 5, B_GEN_SMALL, *txc, lts, return_field=True, **kw)
+        for g, w in zip(got["field"], want["field"]):
+            check(torch.equal(g, w), f"raw gen {kw}: the field differs from the plain version's")
         errs["raw_gen_chain"] = max(errs["raw_gen_chain"], compare_raw_gen(f"raw gen {kw}", got, want))
     torch.cuda.synchronize()
     print(f"phase 2c ok: fused_gen_chain == plain at B={B_GEN_SMALL} ({len(cases)} cases, full and "
           "stream; the stream record == the full run's), gen_raw_system == plain (3 cases, "
-          "40 kHz CFO included; offsets and detection exact)")
+          "40 kHz CFO included; the field, offsets and detection exact)")
     return errs
 
 
@@ -828,7 +839,8 @@ def phase_gen(cap, dev):
         F.launches = D.launches = D.place_launches = R.launches = G.launches = RG.launches = 0
         st = G.fused_gen_chain(GEN_SEED, B_GEN, *txc, snr_db=20.0, stream_sums=True)
         full = G.fused_gen_chain(GEN_SEED, B_GEN, *txc, snr_db=35.0)
-        raw = RG.gen_raw_system(GEN_SEED, B_GEN, *txc, lts, equalize_with="h_mmse")
+        raw = RG.gen_raw_system(GEN_SEED, B_GEN, *txc, lts, equalize_with="h_mmse",
+                                return_field=True)
         raw_cfo = RG.gen_raw_system(GEN_SEED + 1, B_GEN, *txc, lts, equalize_with="h_mmse",
                                     cfo_khz=40.0)
         runs = {gen: S.run_stream_device(N_STREAM, B_GEN, seed=GEN_SEED, snr_db=STREAM_SNR[gen],
@@ -867,8 +879,21 @@ def phase_gen(cap, dev):
                                      slice(0, B_GEN_SMALL))}
 
     in_band, evm = raw_gen_gates("raw gen", raw, evm_den, 0.85, 0.1)
-    want = RG.gen_raw_plain(GEN_SEED, B_GEN_SMALL, *txc, lts, equalize_with="h_mmse")
+    want = RG.gen_raw_plain(GEN_SEED, B_GEN_SMALL, *txc, lts, equalize_with="h_mmse",
+                            return_field=True)
     errs["raw_gen_chain"] = compare_raw_gen("raw gen slice", raw, want, slice(0, B_GEN_SMALL))
+    # the field's first streams against the plain version's: bit-equal where
+    # h_true's f32 rounding is (its f64 sums run in another order on each
+    # side, so a rare frame sample may round one bf16 ulp apart)
+    field = raw.pop("field")
+    n_diff, field_err = 0, 0.0
+    for g, w in zip(field, want.pop("field")):
+        g = g[:, :B_GEN_SMALL]
+        n_diff += int((g != w).sum())
+        field_err = max(field_err, float((g - w).abs().max() / w.abs().max()))
+    check(n_diff <= 1e-5 * 2 * NS * B_GEN_SMALL and field_err <= 2 ** -7,
+          f"raw gen slice: {n_diff} field samples differ, by up to {field_err:.3g} of the largest")
+    del field
     cfo_err_hz = float(((raw_cfo["cfo"] - raw_cfo["cfo_true"]).abs() * 20e6).median())
     check(cfo_err_hz < 200.0, f"raw gen 40 kHz: median |cfo error| {cfo_err_hz:.1f} Hz")
     det = raw_cfo["detected"]
@@ -882,7 +907,7 @@ def phase_gen(cap, dev):
     print(f"phase 7 ok: gen_raw_system B={B_GEN} x NS={NS} SNR 20 h_mmse: detect 1.0, timing in "
           f"band {in_band:.4f}, evm_rms {evm:.4f}; 40 kHz: median cfo error {cfo_err_hz:.1f} Hz, "
           f"detect {float(det.double().mean()):.4f}, evm_rms {evm_cfo:.4f}; first {B_GEN_SMALL} "
-          "streams == plain")
+          f"streams == plain, their field bit-equal but for {n_diff} samples")
     for gen in S.GENERATORS:
         last = records[gen][-1]
         print(f"phase 7 ok: stream {gen} ({N_STREAM} x {B_GEN}, SNR {STREAM_SNR[gen]}): batch "
@@ -932,6 +957,11 @@ def phase_gen_timing(gen_in, dev) -> dict:
     print(f"phase 8: fused_gen_chain with full outputs at B={B_GEN}: {gen_full:.4f} ms")
     print(f"phase 8: raw_gen_chain anatomy: the raw receiver alone on its f32 field {recv:.4f} ms "
           f"(detection {det:.4f} ms), so synthesis ~{t['raw_gen_chain'][0] - recv:.4f} ms")
+    for sync in (False, True):
+        at = RG.kernel_attributes(sync)
+        print(f"phase 8: raw_gen_chain kernel ({'with' if sync else 'no'} CFO): {at['registers']} "
+              f"registers, {at['local_bytes']} B local (spill) a thread, {at['shared_bytes']} B "
+              f"shared a block, {at['blocks_per_sm']} blocks of 32 streams per SM")
     for gen, ms in steps.items():
         print(f"phase 8: stream step {gen}: {ms:.4f} ms per batch = {B_GEN / ms * 1e3:.4g} frames/s")
     print(f"phase 8: generate_rx_lane_major {gen_rx:.4f} ms, generate_raw_lane_major {gen_raw:.4f} ms "

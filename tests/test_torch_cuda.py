@@ -195,6 +195,58 @@ def test_place_kernel_matches_plain(sig_dtype, noise_dtype, dev):
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
 
 
+def _check_place(sig_dtype, noise_dtype, ns: int, b: int, dev) -> None:
+    """One launch at (ns, b), offsets 0 and ns − 1 among them, bit-equal to
+    the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(ns + b)
+    sig = Cplx(*(torch.randn(ns, b, generator=gen, device=dev).to(sig_dtype) for _ in range(2)))
+    noise = Cplx(*(1e-2 * torch.randn(ns, b, generator=gen, device=dev).to(noise_dtype)
+                   for _ in range(2)))
+    offs = torch.randint(0, ns, (b,), generator=gen, device=dev, dtype=torch.int32)
+    offs[0], offs[-1] = 0, ns - 1
+    before = D.place_launches
+    got = D.place_streams(sig, noise, offs)
+    torch.cuda.synchronize()
+    assert D.place_launches == before + 1
+    want = D.place_plain(sig, noise, offs)
+    assert got.re.dtype == sig_dtype
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("noise_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [1361, 2048, 8192])
+@pytest.mark.parametrize("b", [17, 1000])
+def test_place_strips_match_plain(sig_dtype, noise_dtype, ns, b, dev):
+    """Strips of streams through shared memory: a ragged last strip (17 and
+    1,000 streams), a stream length that is no multiple of 64, and one
+    whose full-width strip does not fit (8,192 rows: narrower strips)."""
+    _check_place(sig_dtype, noise_dtype, ns, b, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sig_dtype", [torch.float32, torch.bfloat16])
+def test_place_streams_too_long_to_stage(sig_dtype, dev):
+    """A stream longer than a strip of one may hold is read in place."""
+    ns = 50_000
+    assert D.place_attributes(sig_dtype, torch.float32, ns, 17)["strip"] == 0
+    _check_place(sig_dtype, torch.float32, ns, 17, dev)
+
+
+@pytest.mark.cuda
+def test_place_strip_widths(dev):
+    """A strip row is one 32-B sector where the strip fits 96 KB, halved
+    while it does not; every staged kernel keeps two blocks on an SM and
+    spills nothing."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    for (sig_dtype, ns), strip in {(bf16, 2048): 16, (f32, 2048): 8, (bf16, 8192): 4,
+                                   (f32, 8192): 2, (f32, 24576): 1, (f32, 24577): 0}.items():
+        at = D.place_attributes(sig_dtype, f32, ns, 32768)
+        assert at["strip"] == strip, (sig_dtype, ns, at)
+        assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 2, (sig_dtype, ns, at)
+
+
 RAW_CASES = {
     "f32": dict(dtype="f32"),
     "bf16-stream-sums-mmse": dict(dtype="bf16", stream_sums=True, equalize_with="h_mmse"),
@@ -332,6 +384,46 @@ def test_raw_gen_kernel_matches_plain(case, dev):
     assert float((got["cfo"] - want["cfo"]).abs().max()) <= 1e-6
     for k in ("checksum", "evm_sums"):
         assert rel(to_np(got[k]), to_np(want[k])) < 1e-3, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfo_khz", [0.0, 40.0])
+@pytest.mark.parametrize("ns", [1408, 4096])
+def test_raw_gen_field_at_other_lengths(ns, cfo_khz, dev):
+    """The field written row by row is the plain synthesis's bit for bit at
+    the least multiple of 64 above 1,400 rows (the frame fills all but 48)
+    and at 4,096 rows, with and without a CFO; so are the offsets and the
+    true CFO.  The detection rows equal the plain detection's on that field
+    where the plain detection takes the length (from 1,424 rows).
+
+    Seed 5, as in test_raw_gen_kernel_matches_plain: a frame sample is
+    bit-equal only where h_true's f32 rounding is, and h_true's f64 sums run
+    in another order on each side (seed 11 has a sample one bf16 ulp apart,
+    with the kernel of before this design too)."""
+    txc, lts = _spectra(dev), _taps(dev)
+    before = RG.launches
+    got = RG.gen_raw_system(5, GEN_B, *txc, lts, ns=ns, cfo_khz=cfo_khz, equalize_with="h_mmse",
+                            return_field=True)
+    torch.cuda.synchronize()
+    assert RG.launches == before + 1
+    draws = RG.raw_draws(5, GEN_B, G.channel_consts(dev).tscale.shape[0], ns, dev)
+    field, _, offs, eps = RG.synthesize(draws, *txc, cfo_khz=cfo_khz)
+    for g, w in zip(got["field"], field):
+        assert g.shape == (ns, GEN_B) and torch.equal(g, w)
+    assert torch.equal(got["offsets"], offs) and torch.equal(got["cfo_true"], eps)
+    if ns >= D.FRAME + 64:
+        want = D.detect_plain(field, lts, search=RG.SEARCH, advance=RG.ADVANCE, decimate=True)
+        for k in ("detected", "start"):
+            assert torch.equal(got[k], getattr(want, k)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", [False, True])
+def test_raw_gen_kernel_keeps_two_blocks_per_sm(sync, dev):
+    """The synthesis, detection and chain share one shared-memory union
+    that leaves two blocks of 32 streams on an SM."""
+    at = RG.kernel_attributes(sync)
+    assert at["blocks_per_sm"] >= 2 and at["shared_bytes"] <= 113 * 1024, at
 
 
 @pytest.mark.cuda

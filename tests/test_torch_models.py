@@ -123,7 +123,7 @@ def test_ops_match_jax(fn, capture):
     else:
         h_lt = jm.lt_ls(jnp.asarray(capture.tx_preamble_fft), jnp.asarray(capture.rx_preamble_fft))
         h_ps = jm.ps_interp(jnp.asarray(capture.tx_symb), jnp.asarray(capture.rx_symb), "linear")
-        got = equalize.equalize(_t(capture.rx_symb), _t(h_lt), _t(h_ps))
+        got = equalize(_t(capture.rx_symb), _t(h_lt), _t(h_ps))
         want = jops.equalize(jnp.asarray(capture.rx_symb), h_lt, h_ps)
     assert rel(to_np(got), np.asarray(want)) < 1e-12
 

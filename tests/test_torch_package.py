@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import tpu80211_torch
+from tpu80211 import ops as jops
 from tpu80211_torch import kernels
 from tpu80211_torch.kernels import _build
 
@@ -43,9 +44,57 @@ def test_package_imports_no_jax():
 
 
 def test_package_exports():
+    """The package-level names of ``tpu80211``, ``tpu80211.ops`` and
+    ``tpu80211.pipeline`` resolve in the port; ``equalize`` is the function
+    even after its submodule was imported on its own."""
+    import importlib
+    import types
+
+    from tpu80211_torch import Config, ops
+    from tpu80211_torch.pipeline import rx, sc
+
     assert tpu80211_torch.__version__ == "0.1.0"
     assert tpu80211_torch.constants.N_SC == 53
     assert tpu80211_torch.EstimatorMode.MATH.value == "math"
+    assert "Config" in tpu80211_torch.__all__ and Config().mode is tpu80211_torch.EstimatorMode.MATH
+    assert len(ops.__all__) == 11
+    importlib.import_module("tpu80211_torch.ops.equalize")
+    for name in ops.__all__:
+        obj = getattr(ops, name)
+        assert not isinstance(obj, types.ModuleType), name
+        assert not callable(obj) or obj.__module__.startswith("tpu80211_torch.ops."), name
+    from tpu80211_torch.ops import equalize
+    assert callable(equalize) and equalize.__name__ == "equalize"
+    assert (rx.__name__, sc.__name__) == ("tpu80211_torch.pipeline.rx", "tpu80211_torch.pipeline.sc")
+    with pytest.raises(AttributeError):
+        ops.no_such_name  # noqa: B018
+
+
+@pytest.mark.parametrize("name", jops.__all__)
+def test_ops_has_every_name_of_the_reference(name):
+    """Each name ``tpu80211.ops`` exports, the port's ``ops`` exports too."""
+    from tpu80211_torch import ops
+
+    assert name in ops.__all__
+    assert type(getattr(ops, name)) is type(getattr(jops, name))
+
+
+def test_package_names_load_lazily():
+    """Reading one name of ``ops`` loads its own module and no other stage;
+    importing ``pipeline`` loads neither ``rx`` nor ``sc``."""
+    code = ("import sys\n"
+            "import tpu80211_torch.pipeline\n"
+            "from tpu80211_torch.ops import dft_matrix\n"
+            "mods = set(sys.modules)\n"
+            "assert 'tpu80211_torch.ops.linalg' in mods\n"
+            "bad = {'tpu80211_torch.ops.equalize', 'tpu80211_torch.ops.detect',\n"
+            "       'tpu80211_torch.pipeline.rx', 'tpu80211_torch.pipeline.sc'} & mods\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

@@ -1,0 +1,39 @@
+"""The card probes' source variants, checked without a card: every
+diagnostic edit still finds its text in the kernel source it edits, so no
+variant can rot silently when a kernel changes."""
+
+import pytest
+
+from tpu80211_torch.kernels import _variants
+from tpu80211_torch.kernels import raw_gen_chain_variants as V
+
+CASES = ([(V.SOURCE, name, edits) for name, edits in V.DIAGNOSTICS.items()]
+         + [(V.PLACE_SOURCE, name, edits) for name, edits in V.PLACE_DIAGNOSTICS.items()])
+
+
+@pytest.mark.parametrize("source, name, edits", CASES, ids=[c[1] for c in CASES])
+def test_diagnostic_variants_still_apply_to_the_kernel_sources(source, name, edits):
+    """Each OLD of the edit is in the source, and the variant differs from
+    it."""
+    text = source.read_text()
+    for edit in edits.split(" ;; "):
+        old = edit.split(" -> ")[0].encode().decode("unicode_escape")
+        assert old in text, (name, old)
+    assert _variants.variant_source(source, edits) != text
+
+
+def test_variant_source_raises_on_a_missing_old(tmp_path):
+    src = tmp_path / "k.cu"
+    src.write_text("int a = 1;\nint b = 2;\n")
+    assert _variants.variant_source(src, "int a = 1; -> int a = 3; ;; b = 2 -> b = 4") == (
+        "int a = 3;\nint b = 4;\n")
+    assert _variants.variant_source(src, "int a = 1;\\nint b -> int c") == "int c = 2;\n"
+    with pytest.raises(ValueError, match="not in k.cu"):
+        _variants.variant_source(src, "int a = 1; -> x ;; int z -> y")
+
+
+def test_probe_needs_a_card(monkeypatch, capsys):
+    """Without a CUDA device the probe says so and exits 1, before building."""
+    monkeypatch.setattr(V.torch.cuda, "is_available", lambda: False)
+    assert V.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err

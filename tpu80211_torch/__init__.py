@@ -9,8 +9,8 @@ tensor it launches the kernel or raises.  Nothing here imports JAX.
 """
 
 from tpu80211_torch import constants
-from tpu80211_torch.config import EstimatorMode
+from tpu80211_torch.config import Config, EstimatorMode
 
 __version__ = "0.1.0"
 
-__all__ = ["constants", "EstimatorMode", "__version__"]
+__all__ = ["constants", "Config", "EstimatorMode", "__version__"]

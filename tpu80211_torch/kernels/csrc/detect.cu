@@ -12,7 +12,14 @@
 //
 // place_kernel replaces detect_kernel.py::_place_kernel (pallas_call site
 // _place_call): x[r, l] = sig[(r - offs[l]) mod NS, l] + noise[r, l], added
-// in f32 and rounded to sig's type; the TPU's roll chain is an indexed load.
+// in f32 and rounded to sig's type; the TPU's roll chain is a shifted read
+// of shared memory.  A block owns a strip of streams in one plane, 32 bytes
+// of each row (16 bf16 or 8 f32 streams), and copies the strip's NS rows
+// into shared memory with coalesced 16-B loads; then it writes every output
+// row of the strip whole, each stream reading its own shifted row from
+// shared memory and the noise in place.  A strip longer than 96 KB halves
+// its width; a stream longer than that is read in place.  Indices are
+// 32-bit from a 2D grid (strip, plane).
 //
 // What bounds them on this card.  Detection reads NS rows per stream once
 // into the metric scan (~2 x NS x 2 planes loads, coalesced) and evaluates
@@ -22,9 +29,13 @@
 // filter's loads start at each stream's own coarse row, so a warp's load
 // is 32 rows, not one, and these uncoalesced loads are the limit: on an
 // H100, halving them (runs of 16 offsets instead of 8) halved detection's
-// time.  Placement moves 3 x NS x B x 2 planes of the storage type (~0.8 GB
-// at B = 32768 bf16, ~0.25 ms at 3.35 TB/s): memory-bound, and its sig
-// loads are uncoalesced the same way.
+// time.  Placement moves sig, noise and the output once each, NS x B x 2
+// planes of each type (1.07 GB at B = 32768 with bf16 sig and f32 noise,
+// 0.32 ms at 3.35 TB/s): memory-bound.  A thread per (row, stream) reading
+// sig at its stream's own row took 3.4 ms (a sector a sample, and 64-bit
+// divisions); the strips read and write whole sectors.
+
+#include <type_traits>
 
 #include "detect.cuh"
 
@@ -92,29 +103,130 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// one thread per (row, stream); the stream index runs fastest
-template <typename TS, typename TN>
-__global__ void place_kernel(const TS* sr, const TS* si, const TN* nr, const TN* ni,
-                             const int* offs, TS* xr, TS* xi, int ns, long long batch) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= ns * batch) return;
-  const long long r = i / batch, l = i % batch;
-  const long long src = ((r - offs[l] + ns) % ns) * batch + l;
-  store(xr + i, to_f32(sr[src]) + to_f32(nr[i]));
-  store(xi + i, to_f32(si[src]) + to_f32(ni[i]));
+constexpr int PLACE_THREADS = 256;
+constexpr int STRIP_BYTES = 32;           // a strip's row in one plane: one 32-B sector
+constexpr int PLACE_SMEM_MAX = 96 * 1024;  // a staged strip: at least 2 blocks per SM
+
+struct PlaceParams {
+  const void* sig[2];  // re, im (ns, batch), sig's type
+  const void* noise[2];
+  const int* offs;     // (batch,) in [0, ns)
+  void* out[2];
+  int ns;
+  int batch;
+  int strip_log2;      // streams per strip: 1 << strip_log2
+};
+
+// Block (s, plane) owns streams [s W, s W + W) of one plane.  STAGED: it
+// first copies the strip's ns rows of sig into shared memory, each row's W
+// samples side by side (VEC samples, 16 B, per load when VEC > 1), then
+// writes every output row of the strip: out[r][l] = sig[(r - off_l) mod
+// ns][l] + noise[r][l], a warp covering 32 / W whole rows.  Unstaged (a
+// strip of one stream does not fit): the same row pass reads sig from
+// device memory.  A thread keeps one stream for the whole pass.  Loads go
+// out in batches before their stores, so that enough bytes are in
+// flight to keep device memory busy.
+template <typename TS, typename TN, int VEC, bool STAGED>
+__global__ void __launch_bounds__(PLACE_THREADS) place_kernel(PlaceParams p) {
+  // loads in flight a thread, from a sweep on an H100 (PERF.md): deeper
+  // batches made the kernel up to 4x slower
+  constexpr int LOAD_UNROLL = 4, ROW_UNROLL = sizeof(TS) == 2 ? 4 : 16;
+  using Vec = typename std::conditional<(VEC > 1), uint4, TS>::type;
+  extern __shared__ uint4 place_smem[];
+  TS* strip = reinterpret_cast<TS*>(place_smem);  // [ns][W]
+  const bool im = blockIdx.y != 0;
+  const TS* __restrict__ sig = static_cast<const TS*>(im ? p.sig[1] : p.sig[0]);
+  const TN* __restrict__ noise = static_cast<const TN*>(im ? p.noise[1] : p.noise[0]);
+  TS* __restrict__ out = static_cast<TS*>(im ? p.out[1] : p.out[0]);
+  const int w_log2 = p.strip_log2, w = 1 << w_log2;
+  const int l0 = blockIdx.x << w_log2;
+  const size_t batch = static_cast<size_t>(p.batch);
+  if (STAGED) {
+    const int per_row = w / VEC;  // vectors a row; a power of two
+    const int v_log2 = __ffs(per_row) - 1;
+    const int n_vec = p.ns << v_log2;
+    for (int v0 = threadIdx.x; v0 < n_vec; v0 += LOAD_UNROLL * PLACE_THREADS) {
+      Vec buf[LOAD_UNROLL];
+#pragma unroll
+      for (int u = 0; u < LOAD_UNROLL; ++u) {
+        const int v = v0 + u * PLACE_THREADS, r = v >> v_log2, j = (v & (per_row - 1)) * VEC;
+        // VEC > 1: batch % VEC == 0, so a vector lies wholly inside or outside
+        if (v < n_vec && l0 + j < p.batch)
+          buf[u] = *reinterpret_cast<const Vec*>(sig + r * batch + l0 + j);
+      }
+#pragma unroll
+      for (int u = 0; u < LOAD_UNROLL; ++u) {
+        const int v = v0 + u * PLACE_THREADS, r = v >> v_log2, j = (v & (per_row - 1)) * VEC;
+        if (v < n_vec && l0 + j < p.batch)
+          *reinterpret_cast<Vec*>(strip + (r << w_log2) + j) = buf[u];
+      }
+    }
+    __syncthreads();
+  }
+  const int j = threadIdx.x & (w - 1);  // PLACE_THREADS is a multiple of w
+  const int l = l0 + j;
+  if (l >= p.batch) return;
+  const int off = p.offs[l];
+  const int step = PLACE_THREADS >> w_log2;  // rows a pass of the block covers
+  for (int r0 = threadIdx.x >> w_log2; r0 < p.ns; r0 += ROW_UNROLL * step) {
+    TS sv[ROW_UNROLL];
+    TN nv[ROW_UNROLL];
+#pragma unroll
+    for (int u = 0; u < ROW_UNROLL; ++u) {
+      const int r = r0 + u * step;
+      if (r < p.ns) {
+        int src = r - off;
+        if (src < 0) src += p.ns;
+        sv[u] = STAGED ? strip[(src << w_log2) + j] : sig[src * batch + l];
+        nv[u] = noise[r * batch + l];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < ROW_UNROLL; ++u) {
+      const int r = r0 + u * step;
+      if (r < p.ns) store(out + r * batch + l, to_f32(sv[u]) + to_f32(nv[u]));
+    }
+  }
 }
 
+// The strip width for sig samples of `size` bytes: one sector a row, halved
+// until ns rows fit PLACE_SMEM_MAX; -1 when not even one stream fits.
+inline int strip_log2(int ns, int size) {
+  for (int k = __builtin_ctz(STRIP_BYTES / size); k >= 0; --k)
+    if ((static_cast<size_t>(ns) * size << k) <= static_cast<size_t>(PLACE_SMEM_MAX)) return k;
+  return -1;
+}
+
+// Which instantiation places these streams, its strip width and its shared
+// memory.  `aligned`: both sig planes start on 16 bytes.
+struct PlacePlan {
+  void (*kernel)(PlaceParams);
+  int strip_log2;
+  size_t smem;
+};
+
 template <typename TS, typename TN>
-cudaError_t launch_place(const void* const* ptrs, int ns, long long batch, cudaStream_t stream) {
-  const long long n = ns * batch;
-  const unsigned threads = 256;
-  const unsigned grid = static_cast<unsigned>((n + threads - 1) / threads);
-  place_kernel<TS, TN><<<grid, threads, 0, stream>>>(
-      static_cast<const TS*>(ptrs[0]), static_cast<const TS*>(ptrs[1]),
-      static_cast<const TN*>(ptrs[2]), static_cast<const TN*>(ptrs[3]),
-      static_cast<const int*>(ptrs[4]), static_cast<TS*>(const_cast<void*>(ptrs[5])),
-      static_cast<TS*>(const_cast<void*>(ptrs[6])), ns, batch);
-  return cudaGetLastError();
+PlacePlan place_plan(int ns, int batch, bool aligned) {
+  constexpr int VEC = 16 / sizeof(TS);
+  const int k = strip_log2(ns, sizeof(TS));
+  if (k < 0)  // unstaged: sig read in place, strips one sector wide
+    return {place_kernel<TS, TN, 1, false>, __builtin_ctz(STRIP_BYTES / sizeof(TS)), 0};
+  const size_t smem = static_cast<size_t>(ns) * sizeof(TS) << k;
+  if ((1 << k) >= VEC && batch % VEC == 0 && aligned)
+    return {place_kernel<TS, TN, VEC, true>, k, smem};
+  return {place_kernel<TS, TN, 1, true>, k, smem};
+}
+
+PlacePlan place_plan(int sig_type, int noise_type, int ns, int batch, bool aligned) {
+  if (sig_type == STORE_F32 && noise_type == STORE_F32)
+    return place_plan<float, float>(ns, batch, aligned);
+  if (sig_type == STORE_F32 && noise_type == STORE_BF16)
+    return place_plan<float, __nv_bfloat16>(ns, batch, aligned);
+  if (sig_type == STORE_BF16 && noise_type == STORE_F32)
+    return place_plan<__nv_bfloat16, float>(ns, batch, aligned);
+  if (sig_type == STORE_BF16 && noise_type == STORE_BF16)
+    return place_plan<__nv_bfloat16, __nv_bfloat16>(ns, batch, aligned);
+  return {nullptr, 0, 0};
 }
 
 }  // namespace
@@ -154,16 +266,42 @@ extern "C" int detect_launch(const void* const* ptrs, int n_ptrs, int storage, i
 extern "C" int place_launch(const void* const* ptrs, int n_ptrs, int sig_type, int noise_type,
                             int ns, int batch, void* stream) {
   if (n_ptrs != 7 || ns <= 0 || batch <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (sig_type == STORE_F32 && noise_type == STORE_F32)
-    return launch_place<float, float>(ptrs, ns, batch, st);
-  if (sig_type == STORE_F32 && noise_type == STORE_BF16)
-    return launch_place<float, __nv_bfloat16>(ptrs, ns, batch, st);
-  if (sig_type == STORE_BF16 && noise_type == STORE_F32)
-    return launch_place<__nv_bfloat16, float>(ptrs, ns, batch, st);
-  if (sig_type == STORE_BF16 && noise_type == STORE_BF16)
-    return launch_place<__nv_bfloat16, __nv_bfloat16>(ptrs, ns, batch, st);
-  return cudaErrorInvalidValue;
+  const bool aligned = reinterpret_cast<uintptr_t>(ptrs[0]) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(ptrs[1]) % 16 == 0;
+  const PlacePlan plan = place_plan(sig_type, noise_type, ns, batch, aligned);
+  if (plan.kernel == nullptr) return cudaErrorInvalidValue;
+  const PlaceParams p{{ptrs[0], ptrs[1]}, {ptrs[2], ptrs[3]}, static_cast<const int*>(ptrs[4]),
+                      {const_cast<void*>(ptrs[5]), const_cast<void*>(ptrs[6])}, ns, batch,
+                      plan.strip_log2};
+  cudaError_t err = cudaFuncSetAttribute(plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(plan.smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>((batch + (1 << plan.strip_log2) - 1) >> plan.strip_log2), 2);
+  plan.kernel<<<grid, PLACE_THREADS, plan.smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+// The placement kernel that place_launch runs for these types and shapes
+// (sig planes on 16 bytes, as PyTorch allocates them): out = registers and
+// local (spill) bytes a thread, shared bytes a block, resident blocks per
+// SM, streams per strip (0 when unstaged).
+extern "C" int place_attributes(int sig_type, int noise_type, int ns, int batch, int* out) {
+  const PlacePlan plan = place_plan(sig_type, noise_type, ns, batch, true);
+  if (plan.kernel == nullptr || ns <= 0 || batch <= 0) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(plan.smem));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, plan.kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, plan.kernel, PLACE_THREADS,
+                                                      plan.smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes + plan.smem);
+  out[3] = blocks;
+  out[4] = plan.smem ? 1 << plan.strip_log2 : 0;
+  return err;
 }
 
 extern "C" const char* detect_error_string(int err) {

@@ -27,16 +27,31 @@
 // field agrees bit for bit with kernels/raw_gen_chain.py::gen_raw_plain's,
 // so detection does too.
 //
-// Design, simple first: one block holds 32 streams x 8 groups.  It writes its
-// streams' whole field into an (NS, B) f32 scratch buffer (the wrapper's),
-// then, after a barrier, runs detect::run and chain::run on its own columns
-// exactly as raw_chain.cu does.  A stream's frame rows are written at its own
-// offset, so those stores are not coalesced.
+// Design: one block holds 32 streams x 8 groups.  Like the TPU kernel it
+// builds each frame first and then puts it in place, but the frame's home is
+// not the field.  A frame has 1,024 distinct samples (16 symbols x 64); the
+// cyclic prefixes and the preamble's [last 32 | LTS | LTS] are copies.  Each
+// thread computes 8 consecutive samples of a symbol and stores them, as bf16
+// pairs, in one 32-B sector of its stream's 4 KB row of a compact (B, 1024)
+// scratch (the wrapper's).  Then the (NS, B) f32 field is written once, half
+// the block's streams at a time: the half's 16 compact rows (64 KB) are
+// copied into shared memory, and a warp takes two rows with 16 lanes on
+// each, so every store of the field covers 64 contiguous bytes of one row in
+// each plane and a frame row reads its sample from shared memory.  Shared
+// memory cannot hold all 32 frames with the IDFT's matrices (128 KB more
+// would leave one block per SM for the whole kernel, detection and chain
+// included); half of them fit in the union the chain already needs.  After
+// a barrier the block runs detect::run and chain::run on its own columns
+// exactly as raw_chain.cu does.
 //
-// What bounds it on this card.  Per stream ~2,050 Box-Muller pairs in f64,
-// 16 IDFTs (2.2e5 f64 FMAs), the scratch field (16 KB written, read twice),
-// then raw_chain's detection (scattered loads) and chain (FP32 DFTs).  The
-// scratch alone is >= 0.32 ms of HBM traffic at B = 32,768, NS = 2,048.
+// What bounds it on this card.  Before this design each frame row was stored
+// at its stream's own offset, 4 bytes a lane into 32 different rows, and
+// those stores took 3.6 of 8.4 ms (PERF.md).  Now: per stream ~2,050
+// Box-Muller pairs and a Philox call each in f64, 16 IDFTs (2.2e5 f64
+// FMAs), the field written once (16 KB) and read by detection, then
+// raw_chain's detection (scattered matched-filter loads) and chain (FP32
+// DFTs), which take most of the time.  The field alone is >= 0.16 ms of
+// HBM writes at B = 32,768, NS = 2,048.
 
 #include "chain.cuh"
 #include "detect.cuh"
@@ -70,8 +85,27 @@ using chain::THREADS;
 
 constexpr int N_SYMBOLS = 1 + chain::N_BLOCKS;  // the LTS, then the data blocks
 constexpr int PER_THREAD = N_FFT / GROUPS;       // samples of a symbol per thread
+constexpr int N_DISTINCT = N_SYMBOLS * N_FFT;    // distinct samples of a frame
 constexpr int MIN_OFFSET = 40;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
+
+// Frame row rel (0 <= rel < 1360) as an index into the 1024 distinct
+// samples, symbol-major: the long preamble [last 32 | LTS | LTS] is symbol 0
+// from its sample 32 on; data block b's [CP 16 | 64] is symbol 1 + b from its
+// sample 48 on.
+__device__ __forceinline__ int frame_sample(int rel) {
+  if (rel < chain::PREAMBLE) return (rel + N_FFT / 2) & (N_FFT - 1);
+  const int q = rel - chain::PREAMBLE;
+  const int b = q / chain::SAMP_PER_BLOCK, c = q - b * chain::SAMP_PER_BLOCK;
+  return (1 + b) * N_FFT + ((c + N_FFT - chain::N_CP) & (N_FFT - 1));
+}
+
+// A sample rounded to bf16 in each plane, as one word: re in the low half.
+__device__ __forceinline__ uint32_t bf16_pair(double re, double im) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(re)))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(im))))
+             << 16;
+}
 
 struct SynthSmem {
   double2 v[N_FFT][N_SC];  // the IDFT
@@ -81,6 +115,18 @@ struct SynthSmem {
   float2 wc[N_SC][gen::MAX_TAPS];
   float tscale[gen::MAX_TAPS];
 };
+
+constexpr int HALF = FRAMES / 2;  // streams whose frames the field pass holds at once
+
+// The field pass's shared memory, in place of SynthSmem once the frames are
+// built: half the block's compact frames, and every stream's offset and CFO.
+struct FieldSmem {
+  uint32_t frame[HALF][N_DISTINCT];
+  int off[FRAMES];
+  float eps[FRAMES];
+};
+
+static_assert(sizeof(FieldSmem) <= sizeof(chain::Smem), "the field pass keeps the union's size");
 
 struct RawGenParams {
   detect::Config det_cfg;
@@ -93,6 +139,7 @@ struct RawGenParams {
   const int* seed;
   float* x_re;  // (ns, B) scratch field
   float* x_im;
+  uint32_t* frame;  // (B, 1024) scratch: each stream's distinct frame samples, bf16 pairs
   int* det;
   int* coarse;
   int* start;
@@ -107,8 +154,8 @@ struct RawGenParams {
   float cfo_scale;  // cfo_khz * 1e3 / 20e6 (0: no CFO)
 };
 
-__device__ void synthesize(const RawGenParams& p, SynthSmem& s, long long f, bool live, int lane,
-                           int g) {
+__device__ void synthesize(const RawGenParams& p, SynthSmem& s, FieldSmem& fs, long long f,
+                           bool live, int lane, int g) {
   const long long batch = p.chain.batch;
   const int ns = p.det_cfg.ns;
   for (int i = threadIdx.x; i < N_FFT * N_SC; i += THREADS)
@@ -151,44 +198,16 @@ __device__ void synthesize(const RawGenParams& p, SynthSmem& s, long long f, boo
     p.cfo_true[f] = eps;
   }
 
-  auto noise = [&](int r) {
-    const uint4 w = gen::draw(key, f, r, gen::NOISE);
+  auto noise = [&](long long stream, int r) {
+    const uint4 w = gen::draw(key, stream, r, gen::NOISE);
     return gen::normal_pair(w.x, w.y);
   };
-  auto store = [&](int r, float2 v) {
-    const long long i = static_cast<long long>(r) * batch + f;
-    p.x_re[i] = v.x;
-    p.x_im[i] = v.y;
-  };
-  // the rows outside the frame: noise only (coalesced: a warp's lanes are
-  // neighbouring streams on one row)
-  if (live)
-    for (int r = g; r < ns; r += GROUPS)
-      if (r < off || r >= off + detect::FRAME) {
-        const float2 z = noise(r);
-        store(r, make_float2(__fmul_rn(p.nsc, z.x), __fmul_rn(p.nsc, z.y)));
-      }
-  // a frame row: the bf16 sample, rotated by the CFO, plus noise
-  auto put = [&](int rel, float2 v) {
-    const int r = off + rel;
-    if (cfo) {
-      const float ang = __fmul_rn(__fmul_rn(TWO_PI_F, eps), static_cast<float>(r));
-      double sd, cd;
-      sincos(static_cast<double>(ang), &sd, &cd);
-      const float sn = static_cast<float>(sd), cs = static_cast<float>(cd);
-      v = make_float2(__fsub_rn(__fmul_rn(v.x, cs), __fmul_rn(v.y, sn)),
-                      __fadd_rn(__fmul_rn(v.x, sn), __fmul_rn(v.y, cs)));
-    }
-    const float2 z = noise(r);
-    store(r, make_float2(__fadd_rn(v.x, __fmul_rn(p.nsc, z.x)),
-                         __fadd_rn(v.y, __fmul_rn(p.nsc, z.y))));
-  };
-  auto bf16 = [](double v) {
-    return __bfloat162float(__float2bfloat16_rn(static_cast<float>(v)));
-  };
 
-  // the frame, one symbol at a time: its spectrum tx_s H (f32) to shared
-  // memory, then each thread's 8 samples of it by the IDFT in f64
+  // the frame's 1024 distinct samples, one symbol at a time: its spectrum
+  // tx_s H (f32) to shared memory, then each thread's 8 consecutive samples
+  // by the IDFT in f64, rounded to f32 and to bf16, into the stream's row of
+  // the compact scratch (one 32-B sector a thread)
+  uint32_t* frame = p.frame + f * N_DISTINCT;
   for (int sym = 0; sym < N_SYMBOLS; ++sym) {
     __syncthreads();  // the previous symbol's spectrum is read
 #pragma unroll
@@ -207,26 +226,67 @@ __device__ void synthesize(const RawGenParams& p, SynthSmem& s, long long f, boo
       const double2 xk = s.x[k][lane];
 #pragma unroll
       for (int i = 0; i < PER_THREAD; ++i) {
-        const double2 v = s.v[g + GROUPS * i][k];
+        const double2 v = s.v[PER_THREAD * g + i][k];
         ar[i] += v.x * xk.x - v.y * xk.y;
         ai[i] += v.x * xk.y + v.y * xk.x;
       }
     }
     if (!live) continue;
-#pragma unroll 1
-    for (int i = 0; i < PER_THREAD; ++i) {
-      const int n = g + GROUPS * i;
-      const float2 t = make_float2(bf16(ar[i]), bf16(ai[i]));
-      if (sym == 0) {  // the long preamble: [last 32 | LTS | LTS]
-        put(32 + n, t);
-        put(32 + N_FFT + n, t);
-        if (n >= N_FFT - 32) put(n - (N_FFT - 32), t);
-      } else {  // data block sym - 1: [CP 16 | 64]
-        const int base = chain::PREAMBLE + chain::SAMP_PER_BLOCK * (sym - 1);
-        put(base + chain::N_CP + n, t);
-        if (n >= N_FFT - chain::N_CP) put(base + n - (N_FFT - chain::N_CP), t);
+    uint32_t w[PER_THREAD];
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) w[i] = bf16_pair(ar[i], ai[i]);
+    uint4* dst = reinterpret_cast<uint4*>(frame + sym * N_FFT + PER_THREAD * g);
+    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+  __syncthreads();  // the compact frames are written and visible to the block; SynthSmem is free
+  if (g == 0) {
+    fs.off[lane] = off;
+    fs.eps[lane] = eps;
+  }
+
+  // the field, half the block's streams at a time: the half's compact frames
+  // (16 rows of 4 KB, contiguous) to shared memory, then one pass over the
+  // rows.  Thread t takes stream t % 16 of the half and the rows r = t / 16
+  // (mod 16): a warp covers two rows, each store 64 contiguous bytes of a row
+  // in each plane.  Each row's noise is drawn once; a frame row adds its
+  // sample, read from shared memory, rotated by the CFO.
+  const int lh = threadIdx.x % HALF;
+  for (int half = 0; half < 2; ++half) {
+    const long long f0 = static_cast<long long>(blockIdx.x) * FRAMES + half * HALF;
+    const long long n_live = batch - f0 < HALF ? batch - f0 : HALF;
+    const uint4* src = reinterpret_cast<const uint4*>(p.frame + f0 * N_DISTINCT);
+    uint4* dst = reinterpret_cast<uint4*>(&fs.frame[0][0]);
+    for (int i = threadIdx.x; i < n_live * (N_DISTINCT / 4); i += THREADS) dst[i] = src[i];
+    __syncthreads();
+    const long long fh = f0 + lh;
+    if (fh < batch) {
+      const int off_h = fs.off[half * HALF + lh];
+      const float eps_h = fs.eps[half * HALF + lh];
+      const uint32_t* frame_h = fs.frame[lh];
+      for (int r = threadIdx.x / HALF; r < ns; r += THREADS / HALF) {
+        const float2 z = noise(fh, r);
+        float2 x = make_float2(__fmul_rn(p.nsc, z.x), __fmul_rn(p.nsc, z.y));
+        const int rel = r - off_h;
+        if (rel >= 0 && rel < detect::FRAME) {
+          const uint32_t b = frame_h[frame_sample(rel)];
+          float2 v = make_float2(__uint_as_float(b << 16), __uint_as_float(b & 0xFFFF0000u));
+          if (cfo) {
+            const float ang = __fmul_rn(__fmul_rn(TWO_PI_F, eps_h), static_cast<float>(r));
+            double sd, cd;
+            sincos(static_cast<double>(ang), &sd, &cd);
+            const float sn = static_cast<float>(sd), cs = static_cast<float>(cd);
+            v = make_float2(__fsub_rn(__fmul_rn(v.x, cs), __fmul_rn(v.y, sn)),
+                            __fadd_rn(__fmul_rn(v.x, sn), __fmul_rn(v.y, cs)));
+          }
+          x = make_float2(__fadd_rn(v.x, x.x), __fadd_rn(v.y, x.y));
+        }
+        const long long i = static_cast<long long>(r) * batch + fh;
+        p.x_re[i] = x.x;
+        p.x_im[i] = x.y;
       }
     }
+    __syncthreads();  // the half's frames are read
   }
 }
 
@@ -237,7 +297,8 @@ __global__ void __launch_bounds__(THREADS, 2) raw_gen_kernel(RawGenParams p) {
   const int g = threadIdx.x / FRAMES;
   const long long f = static_cast<long long>(blockIdx.x) * FRAMES + lane;
   const bool live = f < p.chain.batch;
-  synthesize(p, *reinterpret_cast<SynthSmem*>(smem_raw), f, live, lane, g);
+  synthesize(p, *reinterpret_cast<SynthSmem*>(smem_raw), *reinterpret_cast<FieldSmem*>(smem_raw),
+             f, live, lane, g);
   __syncthreads();  // the block's columns of the field are written; shared memory is free
   const detect::Result r = detect::run<float>(
       p.det_cfg, *reinterpret_cast<detect::Smem*>(smem_raw), f, live, lane, g);
@@ -253,12 +314,19 @@ __global__ void __launch_bounds__(THREADS, 2) raw_gen_kernel(RawGenParams p) {
                                                 f, live, lane, g, row0, row0 + chain::PREAMBLE);
 }
 
+// the shared memory of a block: one union for the synthesis, detection and
+// the chain
+size_t smem_of(int search, int stride) {
+  size_t smem = detect::smem_bytes(search, stride, 1);
+  if (smem < sizeof(chain::Smem)) smem = sizeof(chain::Smem);
+  if (smem < sizeof(SynthSmem)) smem = sizeof(SynthSmem);
+  return smem;
+}
+
 template <bool SYNC>
 cudaError_t launch(const RawGenParams& p, cudaStream_t stream) {
   auto kernel = raw_gen_kernel<SYNC>;
-  size_t smem = detect::smem_bytes(p.det_cfg.search, p.det_cfg.stride, p.det_cfg.decimated);
-  if (smem < sizeof(chain::Smem)) smem = sizeof(chain::Smem);
-  if (smem < sizeof(SynthSmem)) smem = sizeof(SynthSmem);
+  const size_t smem = smem_of(p.det_cfg.search, p.det_cfg.stride);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -267,19 +335,37 @@ cudaError_t launch(const RawGenParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <bool SYNC>
+cudaError_t attributes(int search, int stride, int* out) {
+  auto kernel = raw_gen_kernel<SYNC>;
+  const size_t smem = smem_of(search, stride);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
+  out[3] = blocks;
+  return err;
+}
+
 }  // namespace
 
 // ptrs: txs re/im (53, 16), tpre re/im (53, 1), w re/im (64, 53), wi re/im
 // (5, 53, 4), LTS taps re/im (64), IDFT re/im (64, 53), wc re/im (53,
 // n_taps), tscale (n_taps), seed (int32), the scratch field re/im (ns, B),
-// then the chain's outputs (7 h planes re/im, the first five null; eq
+// the compact frame scratch (B, 1024) int32, then the chain's outputs (7 h planes re/im, the first five null; eq
 // re/im, null; ow2, cfo, chk, evm), then det, coarse, start (int32), metric
 // (f32), offsets (int32), h_true re/im (53, B) and cfo_true (B).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int raw_gen_launch(const void* const* ptrs, int n_ptrs, int batch, int ns, int n_taps,
                               float nsc, float cfo_scale, int eq_sel, double threshold,
                               int search, int advance, int stride, void* stream) {
-  constexpr int N_IN = 18;
+  constexpr int N_IN = 19;
   const int span = ns - detect::FRAME - MIN_OFFSET;
   if (n_ptrs != N_IN + chain::N_OUT_PTRS + 8 || batch <= 0 || span <= 0 ||
       ns % detect::LAG != 0 || n_taps < 1 || n_taps > gen::MAX_TAPS || search < 1 ||
@@ -316,6 +402,7 @@ extern "C" int raw_gen_launch(const void* const* ptrs, int n_ptrs, int batch, in
   p.seed = static_cast<const int*>(ptrs[15]);
   p.x_re = x_re;
   p.x_im = x_im;
+  p.frame = static_cast<uint32_t*>(const_cast<void*>(ptrs[18]));
   const void* const* rows = ptrs + N_IN + chain::N_OUT_PTRS;
   p.det = static_cast<int*>(const_cast<void*>(rows[0]));
   p.coarse = static_cast<int*>(const_cast<void*>(rows[1]));
@@ -331,6 +418,14 @@ extern "C" int raw_gen_launch(const void* const* ptrs, int n_ptrs, int batch, in
   p.cfo_scale = cfo_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return cfo_scale != 0.f ? launch<true>(p, st) : launch<false>(p, st);
+}
+
+// The kernel's instantiation without (sync 0) or with a CFO on the current
+// card, for the detector's search and stride: out = registers and local
+// (spill) bytes a thread, shared bytes a block, resident blocks per SM.
+extern "C" int raw_gen_attributes(int sync, int search, int stride, int* out) {
+  if (search < 1 || stride < 1 || detect::LAG % stride != 0) return cudaErrorInvalidValue;
+  return sync ? attributes<true>(search, stride, out) : attributes<false>(search, stride, out);
 }
 
 extern "C" const char* raw_gen_error_string(int err) {

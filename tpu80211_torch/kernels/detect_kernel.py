@@ -217,9 +217,9 @@ def _check_place(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> None:
 # -- the kernels --------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("detect")
+def bind(lib):
+    """A library built from csrc/detect.cu (or from a variant of it), with
+    the ctypes signatures of its launch functions set."""
     lib.detect_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -227,9 +227,29 @@ def _lib():
     lib.place_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.place_launch.restype = ctypes.c_int
+    lib.place_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.place_attributes.restype = ctypes.c_int
     lib.detect_error_string.argtypes = [ctypes.c_int]
     lib.detect_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return bind(_build.load("detect"))
+
+
+def place_attributes(sig_dtype: torch.dtype, noise_dtype: torch.dtype, ns: int,
+                     batch: int) -> dict:
+    """The placement kernel that ``place_streams`` launches for these types
+    and shapes, on the current card: registers and local (spill) bytes a
+    thread, shared bytes a block, resident blocks per SM, and streams per
+    strip (0: too long a stream to stage, sig read in place)."""
+    lib = _lib()
+    out = (ctypes.c_int * 5)()
+    raise_on_error(lib.place_attributes(STORAGE[sig_dtype], STORAGE[noise_dtype], ns, batch, out),
+                   "place", lib.detect_error_string)
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "strip"), out))
 
 
 def detection_rows(b: int, device: torch.device) -> list:
@@ -309,14 +329,16 @@ def place_streams(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> Cplx:
     return _launch_place(sig, noise, offs)
 
 
-def _launch_place(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> Cplx:
+def _launch_place(sig: Cplx, noise: Cplx, offs: torch.Tensor, lib=None) -> Cplx:
+    """One launch; ``lib`` = `bind` of another build of the source (the card
+    probe's variants), else the package's own."""
     global place_launches
     _check_place(sig, noise, offs)
     require_cuda(sig.re)
     for t in (*sig, *noise):
         if not t.is_contiguous():
             raise ValueError("sig and noise must be contiguous")
-    lib = _lib()
+    lib = lib or _lib()
     ns, b = sig.re.shape
     dev = sig.re.device
     out = Cplx(torch.empty_like(sig.re), torch.empty_like(sig.im))

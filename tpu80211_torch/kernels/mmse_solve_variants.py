@@ -4,7 +4,8 @@
     python -m tpu80211_torch.kernels.mmse_solve_variants [NAME='OLD -> NEW ;; ...' ...]
 
 A variant is the source with text replaced (``OLD -> NEW``, several joined
-by `` ;; ``, ``\\n`` for a line break).  With no arguments the variants are
+by `` ;; ``, ``\\n`` for a line break; ``_variants`` builds and times
+them).  With no arguments the variants are
 ``DIAGNOSTICS``: the kernel without its per-step barriers (wrong results,
 the time of the synchronization), without its back substitution, with
 ``sub_mul`` (LU's multiply-adds) written as ``a -= m * b`` (six
@@ -21,15 +22,12 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
-import re
-import statistics
-import subprocess
 import sys
 import tempfile
 
 import torch
 
-from tpu80211_torch.kernels import _build
+from tpu80211_torch.kernels import _build, _variants
 from tpu80211_torch.kernels import mmse_solve as M
 
 SOURCE = _build.CSRC / "mmse_solve.cu"
@@ -47,53 +45,7 @@ DIAGNOSTICS = {
 def variant_source(edits: str) -> str:
     """The kernel's source with each ``OLD -> NEW`` of ``edits`` applied;
     raises if an OLD is not in it."""
-    src = SOURCE.read_text()
-    for edit in filter(None, edits.split(" ;; ")):
-        old, new = (s.encode().decode("unicode_escape") for s in edit.split(" -> "))
-        if old not in src:
-            raise ValueError(f"not in {SOURCE.name}: {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def build(variants: dict, out: pathlib.Path) -> dict:
-    """One nvcc per variant, all started together; returns name →
-    (library, registers, spill stores), the last two per instantiation."""
-    procs = {}
-    for name, edits in variants.items():
-        src = out / f"{name}.cu"
-        src.write_text(variant_source(edits))
-        procs[name] = subprocess.Popen(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / f"{name}.so"),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    built = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
-        lib.mmse_solve_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                                                  ctypes.c_void_p]
-        lib.mmse_solve_launch.restype = ctypes.c_int
-        built[name] = (lib, re.findall(r"Used (\d+) registers", log),
-                       re.findall(r"(\d+) bytes spill stores", log))
-    return built
-
-
-def time_ms(fn, calls: int = 10, reps: int = 5) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+    return _variants.variant_source(SOURCE, edits)
 
 
 def main(argv: list[str]) -> int:
@@ -103,11 +55,13 @@ def main(argv: list[str]) -> int:
     variants = {"as_is": ""}
     variants.update(dict(a.split("=", 1) for a in argv) if argv else DIAGNOSTICS)
     dev = torch.device("cuda", 0)
-    print(torch.cuda.get_device_name(0), subprocess.run(
-        ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip())
+    print(_variants.card())
     with tempfile.TemporaryDirectory() as tmp:
-        built = build(variants, pathlib.Path(tmp))
+        built = _variants.build(SOURCE, variants, pathlib.Path(tmp))
+        for lib, _, _ in built.values():
+            lib.mmse_solve_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                                                      ctypes.c_void_p]
+            lib.mmse_solve_launch.restype = ctypes.c_int
         for name, (_, regs, spills) in built.items():
             print(f"{name}: registers {regs}, spill stores {spills} (instantiations in nvcc's order)")
         for n in (262144, 8192):
@@ -126,7 +80,7 @@ def main(argv: list[str]) -> int:
                                 z.data_ptr(), n, M.METHODS.index(method), stream)
                         if lib.mmse_solve_launch(*args):
                             raise RuntimeError(f"variant {name}: {entry} {method} did not launch")
-                        ms = time_ms(lambda: lib.mmse_solve_launch(*args))
+                        ms = _variants.time_ms(lambda: lib.mmse_solve_launch(*args))
                         k = 2048
                         want = M.fused_rank1_plain(u[:k], rx[:k], ow2[:k], method)
                         err = float((z[:k] - want).abs().max() / want.abs().max())

@@ -9,7 +9,8 @@ CUDA kernel (``csrc/raw_gen_chain.cu``) does, per block of 32 streams:
    rounded to bf16 as the TPU kernel places it;
 3. a random offset per stream in [40, NS − 1360), an optional per-stream
    CFO (``cfo_khz``), and AWGN over all NS rows, into an (NS, B) float32
-   scratch field;
+   scratch field, written once, row by row (the frame's 1,024 distinct
+   samples go first to a compact (B, 1024) scratch of bf16 pairs);
 4. the decimated detection of ``detect_kernel`` on that field, and the
    tx-constant chain of ``fused_chain`` on each stream's aligned rows
    rounded to bf16 (serve, no eq, per-stream Σ|eq − tx|², ``sync`` when
@@ -43,6 +44,7 @@ LANES = G.LANES
 MIN_OFFSET = 40           # the earliest frame start in a stream
 FRAME = D.FRAME           # 1360 rows: long preamble + packet
 SEARCH, ADVANCE = 192, 4  # the detector's fine window and timing advance
+N_DISTINCT = (1 + C.N_BLOCKS) * C.N_FFT  # a frame's distinct samples: LTS and blocks
 _TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 
 # kernel launches since the count was last set to 0 (the plain version never
@@ -225,31 +227,54 @@ def gen_raw_system(seed, batch: int, txs: Cplx, tpre: Cplx, lts_ref: Cplx, ns: i
     return _launch(*args)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    lib = _build.load("raw_gen_chain")
+def bind(lib):
+    """(launch, error string) of a library built from csrc/raw_gen_chain.cu
+    (or from a variant of it), with their ctypes signatures set."""
     fn = lib.raw_gen_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_double, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.raw_gen_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.raw_gen_attributes.restype = ctypes.c_int
     err_string = lib.raw_gen_error_string
     err_string.argtypes = [ctypes.c_int]
     err_string.restype = ctypes.c_char_p
     return fn, err_string
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    return bind(_build.load("raw_gen_chain"))
+
+
+def kernel_attributes(sync: bool = False) -> dict:
+    """The compiled kernel without (``sync`` False) or with a CFO, on the
+    current card: registers and local (spill) bytes a thread, shared bytes
+    a block, and resident blocks per SM (32 streams a block)."""
+    _, err_string = _kernel_fn()  # binds the library's signatures
+    lib = _build.load("raw_gen_chain")
+    out = (ctypes.c_int * 4)()
+    stride, _ = D.stride_of(True)
+    F.raise_on_error(lib.raw_gen_attributes(int(sync), SEARCH, stride, out), "raw_gen_chain",
+                     err_string)
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
+
+
 def _launch(seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshold,
-            equalize_with, cfo_khz, return_field) -> dict:
+            equalize_with, cfo_khz, return_field, kernel=None) -> dict:
+    """One launch; ``kernel`` = `bind` of another build of the source (the
+    card probe's variants), else the package's own."""
     global launches
     _check(batch, ns, txs, tpre, lts_ref, equalize_with, cfo_khz)
     require_cuda(txs.re)
-    fn, err_string = _kernel_fn()
+    fn, err_string = kernel or _kernel_fn()
     dev = txs.re.device
     stride, _ = D.stride_of(True)
     cc = G.channel_consts(dev, channel_model)
     consts = F.chain_consts(dev, channel_model, snr_db)
     field = [torch.empty((ns, batch), dtype=torch.float32, device=dev) for _ in range(2)]
+    frame = torch.empty((batch, N_DISTINCT), dtype=torch.int32, device=dev)
     out, outs = F.chain_outputs(batch, dev, torch.bfloat16, True, False, True)
     det_rows = D.detection_rows(batch, dev)
     offs = torch.empty(batch, dtype=torch.int32, device=dev)
@@ -257,7 +282,7 @@ def _launch(seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshol
                     for _ in range(2)))
     cfo_true = torch.empty(batch, dtype=torch.float32, device=dev)
     ptrs = F.pointer_table([*txs, *tpre, *consts, *lts_ref, *_idft_consts(dev), *cc.wc,
-                            cc.tscale, G.seed_tensor(seed, dev), *field, *outs, *det_rows,
+                            cc.tscale, G.seed_tensor(seed, dev), *field, frame, *outs, *det_rows,
                             offs, *h_true, cfo_true])
     with torch.cuda.device(dev):
         err = fn(ptrs, len(ptrs), batch, ns, cc.tscale.shape[0], noise_scale(snr_db),
