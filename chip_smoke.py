@@ -28,8 +28,9 @@ nvcc per source, all started together), then:
    [-4, -2], finite checksum, EVM) and a 1024-stream slice against the
    plain version;
 6. times the raw receiver, detection, placement and the synced chain
-   against their plain versions, and prints the placement kernel's
-   registers, spills, shared bytes, blocks per SM and strip width;
+   against their plain versions, and prints the registers, spills, shared
+   bytes and blocks per SM of the placement kernel (and its strip width),
+   of the detection kernel and of the raw receiver's kernel;
 2c. (run after 2b) holds the generative kernels against their plain
    versions at B=1024: ``fused_gen_chain`` in full and stream mode
    (channel models None and 'A', SNR 20 and 35; the stream record against
@@ -596,9 +597,12 @@ def phase_raw_timing(raw_in, main_in, dev) -> dict:
     at = D.place_attributes(sig.re.dtype, noise.re.dtype, NS, B_RAW)
     torch.cuda.synchronize()
     print(f"phase 6: place kernel ({sig.re.dtype} sig, {noise.re.dtype} noise, NS={NS}): "
-          f"{at['registers']} registers, {at['local_bytes']} B local (spill) a thread, "
-          f"{at['shared_bytes']} B shared a block, {at['blocks_per_sm']} blocks per SM, "
-          f"{at['strip']} streams a strip")
+          f"{occupancy(at)}, {at['strip']} streams a strip")
+    for dec in (16, 32):
+        print(f"phase 6: detect kernel ({x.re.dtype}, decimate {dec}): "
+              f"{occupancy(D.detect_attributes(x.re.dtype, decimate=dec))}")
+        print(f"phase 6: raw_chain kernel ({x.re.dtype}, decimate {dec}, stream_sums): "
+              f"{occupancy(R.kernel_attributes(x.re.dtype, decimate=dec))}")
     for name, n, unit in (("raw_chain16", B_RAW, "streams"), ("raw_chain32", B_RAW, "streams"),
                           ("detect", B_RAW, "streams"), ("place", B_RAW, "streams"),
                           ("chain_sync", B_MAIN, "frames")):
@@ -608,6 +612,12 @@ def phase_raw_timing(raw_in, main_in, dev) -> dict:
     print(f"phase 6: the chain kernel alone on the aligned frames (B={B_RAW}, evm_sums, h_mmse): "
           f"{chain_aligned:.4f} ms")
     return t
+
+
+def occupancy(at: dict) -> str:
+    """A kernel's attributes as phases 6, 8 and 10 print them."""
+    return (f"{at['registers']} registers, {at['local_bytes']} B local (spill) a thread, "
+            f"{at['shared_bytes']} B shared a block, {at['blocks_per_sm']} blocks per SM")
 
 
 def time_ms(fn, calls: int = 10, reps: int = 5) -> float:
@@ -959,9 +969,7 @@ def phase_gen_timing(gen_in, dev) -> dict:
           f"(detection {det:.4f} ms), so synthesis ~{t['raw_gen_chain'][0] - recv:.4f} ms")
     for sync in (False, True):
         at = RG.kernel_attributes(sync)
-        print(f"phase 8: raw_gen_chain kernel ({'with' if sync else 'no'} CFO): {at['registers']} "
-              f"registers, {at['local_bytes']} B local (spill) a thread, {at['shared_bytes']} B "
-              f"shared a block, {at['blocks_per_sm']} blocks of 32 streams per SM")
+        print(f"phase 8: raw_gen_chain kernel ({'with' if sync else 'no'} CFO): {occupancy(at)}")
     for gen, ms in steps.items():
         print(f"phase 8: stream step {gen}: {ms:.4f} ms per batch = {B_GEN / ms * 1e3:.4g} frames/s")
     print(f"phase 8: generate_rx_lane_major {gen_rx:.4f} ms, generate_raw_lane_major {gen_raw:.4f} ms "

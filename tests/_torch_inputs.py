@@ -141,18 +141,18 @@ def assert_matches(got: dict, want: dict, b: int, tol: dict, batch_major: bool =
 
 
 def make_streams(seed: int, b: int, ns: int = 2048, noise: float = 1e-4, n_empty: int = 0,
-                 offs_range: tuple[int, int] | None = None):
+                 offs_range: tuple[int, int] | None = None, offs=None):
     """b raw streams of ns samples, batch-major complex128: the capture's rx
-    frame (preamble + packet, 1360 samples) at a random offset in each,
-    over complex AWGN of ``noise`` per plane (bench.py's raw workload);
-    the last ``n_empty`` streams carry noise only.  Returns (streams,
-    offsets)."""
+    frame (preamble + packet, 1360 samples) at a random offset in each (or
+    at ``offs``), over complex AWGN of ``noise`` per plane (bench.py's raw
+    workload); the last ``n_empty`` streams carry noise only.  Returns
+    (streams, offsets)."""
     cap = load_capture()
     rng = np.random.default_rng(seed)
     frame = np.concatenate([cap.rx_lptot, cap.rx_packet])
     lo, hi = offs_range or (40, ns - 1400)
     x = (rng.standard_normal((b, ns)) + 1j * rng.standard_normal((b, ns))) * noise
-    offs = rng.integers(lo, hi, b)
+    offs = rng.integers(lo, hi, b) if offs is None else np.asarray(offs)
     for i, o in enumerate(offs[:b - n_empty]):
         x[i, o:o + frame.size] += frame
     return x, offs

@@ -130,14 +130,21 @@ def _streams(dtype: str, dev, cfo: float = 0.0):
     storage dtype; int8 streams are ADC words with their step.  Returns
     (streams, offsets, lsb)."""
     x, offs = make_streams(seed=21, b=B, ns=NS, n_empty=50)
-    x = x * np.exp(2j * np.pi * cfo * np.arange(NS))
+    planes, lsb = _stream_planes(x * np.exp(2j * np.pi * cfo * np.arange(NS)), dtype, dev)
+    return planes, offs, lsb
+
+
+def _stream_planes(x: np.ndarray, dtype: str, dev):
+    """Batch-major complex streams as lane-major planes on ``dev`` in the
+    storage dtype (int8: ADC words of the batch's full scale).  Returns
+    (Cplx, lsb)."""
     re, im = (torch.tensor(np.ascontiguousarray(v.T), dtype=torch.float32, device=dev)
               for v in (x.real, x.imag))
     lsb = 1.0
     if dtype == "int8":
         lsb = max(float(re.abs().max()), float(im.abs().max())) / 127
         re, im = (torch.clamp(torch.round(v / lsb), -127, 127) for v in (re, im))
-    return Cplx(re.to(RAW_STORAGE[dtype]), im.to(RAW_STORAGE[dtype])), offs, lsb
+    return Cplx(re.to(RAW_STORAGE[dtype]), im.to(RAW_STORAGE[dtype])), lsb
 
 
 def _taps(dev) -> Cplx:
@@ -264,9 +271,7 @@ def test_raw_kernel_matches_plain(case, dev):
     kw = dict(RAW_CASES[case])
     dtype = kw.pop("dtype")
     x, offs, lsb = _streams(dtype, dev, cfo=EPS if kw.get("sync") else 0.0)
-    cap = load_capture()
-    txc = F.tx_spectra(*(torch_planes(a).map(lambda t: t.to(dev))
-                         for a in (cap.tx_packet, cap.tx_lptot)))
+    txc = _spectra(dev)
     before = R.launches
     got = R.raw_rx_txconst_fused(x, _taps(dev), *txc, lsb=lsb, **kw)
     torch.cuda.synchronize()
@@ -283,14 +288,118 @@ def test_staged_receiver_equals_fused_kernel(dev):
     """The staged receiver (detect-and-align kernel, then the chain kernel)
     and the one-kernel receiver run the same code on the same samples."""
     x, _, _ = _streams("bf16", dev)
-    cap = load_capture()
-    txc = F.tx_spectra(*(torch_planes(a).map(lambda t: t.to(dev))
-                         for a in (cap.tx_packet, cap.tx_lptot)))
+    txc = _spectra(dev)
     staged = P.raw_rx_txconst(x, _taps(dev), *txc)
     fused = R.raw_rx_txconst_fused(x, _taps(dev), *txc, decimate=False)
     torch.cuda.synchronize()
     assert torch.equal(staged["start"], fused["start"])
     assert_matches(fused, staged, B, TOL["bf16"])
+
+
+def _raw_streams(dtype: str, dev, ns: int = NS, b: int = B, offs=None, empty=()):
+    """b lane-major streams of ns rows, the capture's frame at ``offs``
+    (seeded in [40, ns − 1400) when None; blocks of 32 listed in ``empty``
+    carry noise only), in the storage dtype; int8 words with their step."""
+    offs_range = (8, 48) if ns < D.FRAME + 64 else None  # NS = 1408: the frame fills all but 48
+    x, _ = make_streams(seed=ns + b, b=b, ns=ns, offs=offs, offs_range=offs_range)
+    noise, _ = make_streams(seed=3, b=b, ns=ns, n_empty=b, offs_range=offs_range)
+    for k in empty:
+        x[32 * k:32 * (k + 1)] = noise[32 * k:32 * (k + 1)]
+    return _stream_planes(x, dtype, dev)
+
+
+def _widest_union(ns: int, b: int) -> np.ndarray:
+    """Offsets whose every block spans the widest union of windows: lane 0
+    at 40, lane 31 at ns − 1401, the rest spread between them in a
+    scrambled order."""
+    rng = np.random.default_rng(ns)
+    block = np.linspace(40, ns - 1401, 32).round().astype(int)
+    return np.concatenate([np.r_[block[0], rng.permutation(block[1:-1]), block[-1]]
+                           for _ in range(-(-b // 32))])[:b]
+
+
+STAGING_CASES = {
+    "widest-union-f32": dict(dtype="f32", b=64, widest=True),
+    "widest-union-bf16": dict(dtype="bf16", b=64, widest=True),
+    "widest-union-int8": dict(dtype="int8", b=64, widest=True),
+    "widest-union-full-res": dict(dtype="bf16", b=64, widest=True, decimate=False),
+    "search-1-dec64": dict(dtype="bf16", search=1, decimate=64),
+    "max-search-dec64-f32": dict(dtype="f32", search=D.MAX_SEARCH, decimate=64),
+    "max-search-dec64-bf16": dict(dtype="bf16", search=D.MAX_SEARCH, decimate=64),
+    "max-search-dec64-int8": dict(dtype="int8", search=D.MAX_SEARCH, decimate=64),
+    "ns-1408": dict(dtype="bf16", ns=1408),
+    "ns-1408-full-res-f32": dict(dtype="f32", ns=1408, decimate=False),
+    "ns-8192": dict(dtype="bf16", ns=8192, b=256),
+    "ns-8192-f32-widest": dict(dtype="f32", ns=8192, b=64, widest=True),
+    "b-17": dict(dtype="bf16", b=17),
+    "b-17-f32": dict(dtype="f32", b=17),
+    "b-1000-int8": dict(dtype="int8"),
+    "block-without-detection": dict(dtype="bf16", b=96, empty=(1,)),
+    "block-without-detection-f32": dict(dtype="f32", b=96, empty=(0, 2)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STAGING_CASES))
+def test_staged_windows_match_plain(case, dev):
+    """What the staging of the matched filter's windows could get wrong:
+    blocks whose windows spread over the widest union, the least and the
+    largest search, the least and a long NS, ragged batches (dead lanes), a
+    block with no detected stream, each storage type.  Detection and the
+    raw receiver against their plain versions: indices equal, the metric
+    within 1e-5, the chain at its tolerances."""
+    kw = dict(STAGING_CASES[case])
+    dtype, ns, b = kw.pop("dtype"), kw.pop("ns", NS), kw.pop("b", B)
+    offs = _widest_union(ns, b) if kw.pop("widest", False) else None
+    x, lsb = _raw_streams(dtype, dev, ns, b, offs, kw.pop("empty", ()))
+    search, decimate = kw.pop("search", 192), kw.pop("decimate", 16)
+    before = (D.launches, R.launches)
+    got = D.detect_streams(x, _taps(dev), search=search, decimate=decimate)
+    raw = R.raw_rx_txconst_fused(x, _taps(dev), *_spectra(dev), search=search,
+                                 decimate=decimate, lsb=lsb, stream_sums=True)
+    torch.cuda.synchronize()
+    assert (D.launches, R.launches) == (before[0] + 1, before[1] + 1)
+    want = D.detect_plain(x, _taps(dev), search=search, decimate=decimate)
+    raw_want = R.raw_chain_plain(x, _taps(dev), *_spectra(dev), search=search,
+                                 decimate=decimate, lsb=lsb, stream_sums=True)
+    for k in ("detected", "coarse", "start"):
+        assert torch.equal(got[k], getattr(want, k)), k
+        assert torch.equal(raw[k], raw_want[k]), k
+    for m in (got["metric"], raw["metric"]):
+        err = ((m - want.metric).abs() / want.metric.abs().clamp_min(1e-30)).max()
+        assert float(err) <= 1e-5
+    assert_matches(raw, raw_want, b, TOL["f32" if dtype == "f32" else "bf16"])
+    if offs is not None:
+        assert got["detected"].all()
+    if "empty" in STAGING_CASES[case]:
+        assert not got["detected"][32 * STAGING_CASES[case]["empty"][0]:][:32].any()
+
+
+# local (spill) bytes a thread of the raw receiver's kernel before the
+# detection body staged its windows (bf16, stream_sums, no sync, decimate 16;
+# detect_variants on that body, H100 80GB HBM3)
+PARENT_RAW_LOCAL_BYTES = 168
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("decimate", [16, 32])
+def test_raw_kernel_keeps_two_blocks_per_sm(dtype, decimate, dev):
+    """Detection's stage and |MF| values fit the chain's shared-memory union
+    at the default search, so every instantiation keeps two blocks of 32
+    streams on an SM; the detection kernel alone keeps at least two."""
+    for sync in (False, True):
+        for sums in (False, True):
+            at = R.kernel_attributes(RAW_STORAGE[dtype], sync, sums, decimate=decimate)
+            assert at["blocks_per_sm"] >= 2 and at["shared_bytes"] <= 113 * 1024, (sync, sums, at)
+    at = D.detect_attributes(RAW_STORAGE[dtype], decimate=decimate)
+    assert at["blocks_per_sm"] >= 2 and at["local_bytes"] == 0, at
+
+
+@pytest.mark.cuda
+def test_raw_kernel_spills_no_more_than_before(dev):
+    at = R.kernel_attributes(torch.bfloat16, False, True, decimate=16)
+    assert at["local_bytes"] <= PARENT_RAW_LOCAL_BYTES, at
 
 
 # -- the generative kernels -------------------------------------------------------------------
@@ -394,7 +503,7 @@ def test_raw_gen_field_at_other_lengths(ns, cfo_khz, dev):
     the least multiple of 64 above 1,400 rows (the frame fills all but 48)
     and at 4,096 rows, with and without a CFO; so are the offsets and the
     true CFO.  The detection rows equal the plain detection's on that field
-    where the plain detection takes the length (from 1,424 rows).
+    at both lengths.
 
     Seed 5, as in test_raw_gen_kernel_matches_plain: a frame sample is
     bit-equal only where h_true's f32 rounding is, and h_true's f64 sums run
@@ -411,10 +520,9 @@ def test_raw_gen_field_at_other_lengths(ns, cfo_khz, dev):
     for g, w in zip(got["field"], field):
         assert g.shape == (ns, GEN_B) and torch.equal(g, w)
     assert torch.equal(got["offsets"], offs) and torch.equal(got["cfo_true"], eps)
-    if ns >= D.FRAME + 64:
-        want = D.detect_plain(field, lts, search=RG.SEARCH, advance=RG.ADVANCE, decimate=True)
-        for k in ("detected", "start"):
-            assert torch.equal(got[k], getattr(want, k)), k
+    want = D.detect_plain(field, lts, search=RG.SEARCH, advance=RG.ADVANCE, decimate=True)
+    for k in ("detected", "start"):
+        assert torch.equal(got[k], getattr(want, k)), k
 
 
 @pytest.mark.cuda

@@ -140,6 +140,34 @@ def test_detect_plain_matches_detect_core(storage, decimate):
     assert (err >= -4).all() and (err <= -2).all(), err
 
 
+@pytest.mark.parametrize("decimate", [False, 16])
+def test_detect_plain_at_the_least_length_matches_detect_core(decimate):
+    """NS = 1,408, the least multiple of 64 that holds the 1,360-row frame,
+    with the frames at offsets 8–47 (all but the last 48 rows are frame):
+    the plain detection is _detect_core's, index for index."""
+    ns = TD.MIN_NS
+    assert ns == 1408
+    xb, offs = make_streams(seed=9, b=B, ns=ns, offs_range=(8, 48))
+    x = Cplx(*(torch.tensor(np.ascontiguousarray(v.T), dtype=torch.float32)
+               for v in (xb.real, xb.imag)))
+    h = _taps()
+    wrr, wri = JD._mf_bands((tuple(map(float, h.re)), tuple(map(float, h.im))))
+    det, coarse, start, metric = JD._detect_core(
+        jnp.asarray(x.re.numpy()), jnp.asarray(x.im.numpy()), jnp.asarray(wrr), jnp.asarray(wri),
+        ns=ns, threshold=0.5, search=192, advance=4, decimate=decimate)
+    det = np.asarray(det[0]) > 0
+    got = TD.detect_plain(x, h, decimate=decimate)
+    np.testing.assert_array_equal(got.detected.numpy(), det)
+    np.testing.assert_array_equal(got.coarse.numpy(), np.where(det, np.asarray(coarse[0]), -1))
+    np.testing.assert_array_equal(got.start.numpy(), np.where(det, np.asarray(start[0]), -1))
+    assert rel(got.metric.numpy(), np.asarray(metric[0])) < 1e-6
+    assert got.detected.all()
+    err = got.start.numpy() - offs
+    assert (err >= -4).all() and (err <= -2).all(), err
+    with pytest.raises(ValueError, match="at least 1408"):
+        TD.detect_plain(x.map(lambda t: t[:1344].contiguous()), h)
+
+
 def test_mf_taps_equal_mf_bands():
     h = _taps()
     wrr, wri = JD._mf_bands((tuple(map(float, h.re)), tuple(map(float, h.im))))

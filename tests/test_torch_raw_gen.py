@@ -196,6 +196,26 @@ def test_span_is_checked(consts):
     assert TR.span_of(2048) == 648
 
 
+@pytest.mark.parametrize("cfo_khz", [0.0, 40.0])
+def test_plain_runs_at_the_least_length(consts, cfo_khz):
+    """1,408 rows, the least multiple of 64 that holds a frame, run through
+    the plain synthesis and the plain detection of the field: every frame
+    found, timing mostly in [−4, −2] (the channel is dispersive, as in
+    test_detection_timing_and_mmse_equalizer); 1,344 rows and 1,410 are
+    refused."""
+    _, (port, lts) = consts
+    out = TR.gen_raw_plain(5, B, *port, lts, ns=1408, snr_db=30.0, cfo_khz=cfo_khz,
+                           return_field=True)
+    assert out["field"].re.shape == (1408, B)
+    assert out["detected"].all()
+    band = (out["start"] - out["offsets"]).numpy()
+    assert np.mean((band >= -4) & (band <= -2)) > 0.7, band
+    assert torch.isfinite(out["evm_sums"]).all()
+    for ns in (1344, 1410):
+        with pytest.raises(ValueError):
+            TR.gen_raw_plain(5, B, *port, lts, ns=ns)
+
+
 # -- statistics of the port's own draws (tests/test_stream.py:108-190) ---------------------------
 
 

@@ -4,11 +4,15 @@ variant can rot silently when a kernel changes."""
 
 import pytest
 
-from tpu80211_torch.kernels import _variants
+from tpu80211_torch.kernels import _build, _variants
+from tpu80211_torch.kernels import detect_variants as DV
 from tpu80211_torch.kernels import raw_gen_chain_variants as V
 
 CASES = ([(V.SOURCE, name, edits) for name, edits in V.DIAGNOSTICS.items()]
-         + [(V.PLACE_SOURCE, name, edits) for name, edits in V.PLACE_DIAGNOSTICS.items()])
+         + [(V.PLACE_SOURCE, name, edits) for name, edits in V.PLACE_DIAGNOSTICS.items()]
+         + [(_build.CSRC / DV.HEADER, name, edits) for name, edits in DV.DIAGNOSTICS.items()]
+         + [(DV.SOURCES["raw_chain"], name, edits)
+            for name, edits in DV.CHAIN_DIAGNOSTICS.items()])
 
 
 @pytest.mark.parametrize("source, name, edits", CASES, ids=[c[1] for c in CASES])
@@ -32,8 +36,33 @@ def test_variant_source_raises_on_a_missing_old(tmp_path):
         _variants.variant_source(src, "int a = 1; -> x ;; int z -> y")
 
 
+def test_header_edit_lands_in_the_variants_own_directory(tmp_path):
+    """A variant that edits detect.cuh writes the edited header beside its
+    copy of detect.cu, where the quoted #include finds it first; csrc/ is
+    left as it was, and a string of edits still edits the source alone."""
+    header = _build.CSRC / DV.HEADER
+    before = {p.name: p.read_bytes() for p in _build.CSRC.iterdir()}
+    edits = DV.DIAGNOSTICS["no_mf"]
+    src = _variants.write_variant(DV.SOURCES["detect"], {DV.HEADER: edits}, tmp_path / "no_mf")
+    assert src == tmp_path / "no_mf" / "detect.cu"
+    assert src.read_text() == DV.SOURCES["detect"].read_text()
+    assert '#include "detect.cuh"' in src.read_text()
+    assert (src.parent / DV.HEADER).read_text() == _variants.variant_source(header, edits)
+    assert (src.parent / DV.HEADER).read_text() != header.read_text()
+    assert {p.name: p.read_bytes() for p in _build.CSRC.iterdir()} == before
+    plain = _variants.write_variant(V.SOURCE, V.DIAGNOSTICS["no_idft"], tmp_path / "no_idft")
+    assert sorted(p.name for p in plain.parent.iterdir()) == ["raw_gen_chain.cu"]
+    assert plain.read_text() == _variants.variant_source(V.SOURCE, V.DIAGNOSTICS["no_idft"])
+
+
 def test_probe_needs_a_card(monkeypatch, capsys):
     """Without a CUDA device the probe says so and exits 1, before building."""
     monkeypatch.setattr(V.torch.cuda, "is_available", lambda: False)
     assert V.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_detect_probe_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(DV.torch.cuda, "is_available", lambda: False)
+    assert DV.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err

@@ -26,10 +26,10 @@
 // the matched filter at ~2*search + 68 offsets of 64 taps in f64: ~1.2e5
 // f64 FMAs per stream at the default search of 192, ~4e9 at B = 32768
 // (~0.25 ms at the H100 SXM's ~34 TFLOP/s f64 without tensor cores).  The
-// filter's loads start at each stream's own coarse row, so a warp's load
-// is 32 rows, not one, and these uncoalesced loads are the limit: on an
-// H100, halving them (runs of 16 offsets instead of 8) halved detection's
-// time.  Placement moves sig, noise and the output once each, NS x B x 2
+// filter's windows start at each stream's own coarse row; read in place, a
+// warp's load touched 32 rows, and those loads set detection's time.  Now
+// each block stages its windows in shared memory by coalesced row loads
+// (detect.cuh).  Placement moves sig, noise and the output once each, NS x B x 2
 // planes of each type (1.07 GB at B = 32768 with bf16 sig and f32 noise,
 // 0.32 ms at 3.35 TB/s): memory-bound.  A thread per (row, stream) reading
 // sig at its stream's own row took 3.4 ms (a sector a sample, and 64-bit
@@ -89,13 +89,19 @@ __global__ void __launch_bounds__(detect::THREADS) detect_kernel(DetectParams p)
 template <typename T>
 cudaError_t launch_detect(const DetectParams& p, cudaStream_t stream) {
   auto kernel = detect_kernel<T>;
-  const size_t smem = detect::smem_bytes(p.cfg.search, p.cfg.stride, p.cfg.decimated);
+  const size_t smem = detect::smem_bytes<T>(p.cfg.search, p.cfg.stride, p.cfg.decimated);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((p.cfg.batch + detect::LANES - 1) / detect::LANES);
   kernel<<<grid, detect::THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t attributes(int search, int stride, int decimated, int* out) {
+  return detect::occupancy(detect_kernel<T>, detect::THREADS,
+                           detect::smem_bytes<T>(search, stride, decimated), out);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -288,20 +294,23 @@ extern "C" int place_launch(const void* const* ptrs, int n_ptrs, int sig_type, i
 extern "C" int place_attributes(int sig_type, int noise_type, int ns, int batch, int* out) {
   const PlacePlan plan = place_plan(sig_type, noise_type, ns, batch, true);
   if (plan.kernel == nullptr || ns <= 0 || batch <= 0) return cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncSetAttribute(plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(plan.smem));
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, plan.kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, plan.kernel, PLACE_THREADS,
-                                                      plan.smem);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(attr.sharedSizeBytes + plan.smem);
-  out[3] = blocks;
+  const cudaError_t err = detect::occupancy(plan.kernel, PLACE_THREADS, plan.smem, out);
   out[4] = plan.smem ? 1 << plan.strip_log2 : 0;
   return err;
+}
+
+// The detection kernel for this storage (0 f32, 1 bf16, 2 int8), search
+// and metric stride, with or without alignment (the same kernel), on the
+// current card: out = registers and local (spill) bytes a thread, shared
+// bytes a block, resident blocks per SM.
+extern "C" int detect_attributes(int storage, int search, int stride, int decimated, int* out) {
+  if (search < 1 || stride < 1 || detect::LAG % stride != 0) return cudaErrorInvalidValue;
+  switch (storage) {
+    case STORE_F32: return attributes<float>(search, stride, decimated, out);
+    case STORE_BF16: return attributes<__nv_bfloat16>(search, stride, decimated, out);
+    case STORE_I8: return attributes<int8_t>(search, stride, decimated, out);
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* detect_error_string(int err) {

@@ -1,6 +1,6 @@
 // Packet detection and timing of one raw stream per lane, as a __device__
-// function shared by detect.cu (detection, and alignment) and raw_chain.cu
-// (detection feeding the chain).
+// function shared by detect.cu (detection, and alignment), raw_chain.cu and
+// raw_gen_chain.cu (detection feeding the chain).
 //
 // Semantics are tpu80211/kernels/detect_kernel.py::_detect_core on samples
 // upcast to f32 (bf16 and int8 exactly):
@@ -21,16 +21,35 @@
 // crossing or a near-tie of the argmax; the matched filter is rounded to
 // f32 once, as the plain version rounds it.
 //
-// Layout: a block holds 32 streams (the lane) x 8 warps.  The metric grid
-// is split into 8 contiguous ranges, one per warp, each a running window
-// sum restarted at its first point; the matched filter is evaluated only
-// over [coarse, coarse + 2*search + 68), where the argmax can look (the TPU
-// computes all ~NS offsets because its shapes are static), each warp taking
-// runs of 16 consecutive offsets from one pass over their 79 rows; its
-// values go to shared memory, and the argmax and the minima cross the warps
-// there, the smallest index winning a tie.  Lanes load their own rows, so
-// in the matched filter (rows from each stream's coarse on) a warp's load
-// touches 32 rows: the load is not coalesced.
+// Layout: a block holds 32 streams (the lane) x 8 warps.
+//   1. The threshold scan: the metric grid is split into 8 contiguous
+//      ranges, one per warp; lane l reads stream l, so a warp's load is one
+//      row of 32 neighbouring streams (coalesced).  On a grid of stride 16
+//      and up a window is the sum of its 64/stride blocks of products, each
+//      block summed once into a ring of registers; finer grids keep a
+//      running window, restarted at each range's first point.  Undetected
+//      streams then take their peak metric over rows 0 .. 2*search + 126 the
+//      same way (the same rows in every lane).
+//   2. Every detected stream has a window of rows [coarse, coarse + 2*sf +
+//      131) (sf the fine search): the matched filter's 2*sf + 68 offsets of
+//      64 taps and the peak scan's grid points.  The block stages these
+//      windows in shared memory, G streams at a time (G = 32, 16, 8, ...:
+//      the most whose windows and matched filter fit SMEM_TARGET), stream-
+//      major, each row a pair of samples in the storage type (odd stride).
+//      The copy walks the group's union of windows row by row: a warp's load
+//      is 32/G rows of G neighbouring streams, one 32-byte sector each
+//      (bf16: G = 16 at the default search; f32: G = 8), and a lane whose
+//      window does not hold its row does not load.
+//   3. From shared memory, with all 256 threads: the peak metric in items of
+//      (stream, one of 8 chunks of its window's grid points), and the
+//      matched filter in items of (stream, run of MF_RUN offsets): a thread
+//      keeps MF_RUN rows in registers and walks the 64 taps once, so each
+//      row and tap is read from shared memory once per run.  Items of
+//      streams without a window skip.  The |MF| values go to shared memory.
+//   4. The first argmax of pair, split over 256/G slices of each window and
+//      reduced across them, the smallest index winning a tie.
+// Windows start at each stream's own row: read in place, a warp's load
+// would touch 32 rows (32 sectors), which is why they are staged.
 
 #pragma once
 
@@ -47,8 +66,11 @@ constexpr int LANES = 32;          // streams per block
 constexpr int WARPS = 8;
 constexpr int THREADS = LANES * WARPS;
 constexpr int FRAME = 160 + 1200;  // long preamble + packet rows
-constexpr int MF_EXTRA = 68;       // matched-filter rows past the last pair index
-constexpr int MF_RUN = 16;         // consecutive matched-filter offsets per warp pass
+constexpr int MF_EXTRA = 68;       // matched-filter offsets past the last pair index
+constexpr int WIN_EXTRA = 2 * LAG + 3;  // staged rows past the fine window: 68 + 63
+constexpr int MF_RUN = 8;          // consecutive matched-filter offsets per item
+constexpr int COPY_UNROLL = 4;     // rows in flight a thread in the copy
+constexpr size_t SMEM_TARGET = 96 * 1024;  // a group's stage and |MF|: two blocks per SM
 
 struct Config {
   const void* x_re;   // (ns, batch) raw streams, storage type
@@ -71,20 +93,75 @@ struct Result {
   float metric;
 };
 
-struct Smem {
-  double2 h[LAG];
-  double dred[WARPS][LANES];
-  int ired[WARPS][LANES];
-  float mf[1];  // [mf_rows][LANES], sized at launch
+// A staged sample: both planes side by side in the storage type
+template <typename T>
+struct Pair;
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+};
+template <>
+struct Pair<int8_t> {
+  using type = char2;
 };
 
-// rows of the matched filter kept per stream
-__host__ __device__ inline int mf_rows(int search, int stride, int decimated) {
-  return 2 * (search + (decimated ? stride : 0)) + MF_EXTRA;
+__device__ __forceinline__ float2 pair_of(float re, float im) { return make_float2(re, im); }
+__device__ __forceinline__ __nv_bfloat162 pair_of(__nv_bfloat16 re, __nv_bfloat16 im) {
+  return __halves2bfloat162(re, im);
+}
+__device__ __forceinline__ char2 pair_of(int8_t re, int8_t im) { return make_char2(re, im); }
+
+__device__ __forceinline__ double2 unpack(float2 v) { return make_double2(v.x, v.y); }
+__device__ __forceinline__ double2 unpack(__nv_bfloat162 v) {
+  return make_double2(__low2float(v), __high2float(v));
+}
+__device__ __forceinline__ double2 unpack(char2 v) { return make_double2(v.x, v.y); }
+
+struct Smem {
+  double2 h[LAG];
+  double dred[THREADS];  // per-thread partials
+  double pk[THREADS];
+  int ired[THREADS];
+  int lo[LANES];         // a stream's window: rows [lo, hi), lo = -1 without one
+  int hi[LANES];
+  int n_mf[LANES];       // its matched-filter offsets
+  float peak[LANES];     // per stream: the peak metric and the argmax of pair
+  int best[LANES];
+  double2 rest[1];       // the group's stage, then its |MF| values, sized at launch
+};
+
+// Where a group's staged windows and |MF| values lie in Smem::rest, for
+// samples of type T at this search and stride
+struct Layout {
+  int log2_group;  // streams staged at once: 1 << log2_group
+  int row_stride;  // staged rows a stream (odd, in pairs)
+  int n_mf;        // matched-filter offsets of a full window
+  size_t mf_at;    // byte offset of the |MF| values in Smem
+  size_t bytes;    // the block's shared memory
+};
+
+template <typename T>
+__host__ __device__ inline Layout layout(int search, int stride, int decimated) {
+  using P = typename Pair<T>::type;
+  const int sf = search + (decimated ? stride : 0);
+  const int n_mf = 2 * sf + MF_EXTRA;
+  // a run's rows reach MF_RUN + 62 past its first offset
+  const int sp = (n_mf + MF_RUN + LAG - 1) | 1;
+  for (int lg = 5;; --lg) {
+    const size_t stage = (sizeof(P) * (static_cast<size_t>(sp) << lg) + 15) / 16 * 16;
+    const size_t mf_at = offsetof(Smem, rest) + stage;
+    const size_t bytes = mf_at + sizeof(float) * (static_cast<size_t>(n_mf) << lg);
+    if (bytes <= SMEM_TARGET || lg == 0) return Layout{lg, sp, n_mf, mf_at, bytes};
+  }
 }
 
+template <typename T>
 __host__ __device__ inline size_t smem_bytes(int search, int stride, int decimated) {
-  return offsetof(Smem, mf) + sizeof(float) * LANES * mf_rows(search, stride, decimated);
+  return layout<T>(search, stride, decimated).bytes;
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -103,28 +180,81 @@ struct Stream {
   }
 };
 
+// A stream's staged rows, from `lo` on
+template <typename P>
+struct Staged {
+  const P* rows;
+  int lo;
+  __device__ __forceinline__ double2 at(int row) const { return unpack(rows[row - lo]); }
+};
+
 // S&C window sums over the products j of a window
 struct Win {
   double pr = 0.0, pi = 0.0, e1 = 0.0, e2 = 0.0;
-  template <typename T>
-  __device__ __forceinline__ void add(const Stream<T>& x, int j, double sign) {
+  template <typename X>
+  __device__ __forceinline__ void add(const X& x, int j, double sign) {
     const double2 a = x.at(j), b = x.at(j + LAG);
     pr += sign * (a.x * b.x + a.y * b.y);
     pi += sign * (a.y * b.x - a.x * b.y);
     e1 += sign * (a.x * a.x + a.y * a.y);
     e2 += sign * (b.x * b.x + b.y * b.y);
   }
+  __device__ __forceinline__ void add(const Win& o) {
+    pr += o.pr;
+    pi += o.pi;
+    e1 += o.e1;
+    e2 += o.e2;
+  }
   __device__ __forceinline__ double metric() const {
     return (pr * pr + pi * pi) / fmax(e1 * e2, 1e-30);
   }
 };
 
-// Visit M at grid points i0 .. i1-1 (window start d = i*stride) with a
-// running window; fn(i, M) returns true to stop.
-template <typename T, typename Fn>
-__device__ __forceinline__ void scan_metric(const Stream<T>& x, int stride, int i0, int i1,
-                                            Fn&& fn) {
+// The sums of the products j in [d, d + N)
+template <int N, typename X>
+__device__ __forceinline__ Win block_sums(const X& x, int d) {
+  Win w;
+#pragma unroll 4
+  for (int j = d; j < d + N; ++j) w.add(x, j, 1.0);
+  return w;
+}
+
+// M at grid points i0 .. i1-1 of a grid of stride LAG / NB: point i's
+// window is the NB blocks of products from row i*stride on.  Each block is
+// summed once and kept in a ring of registers (block i0 + b in slot b % NB;
+// the loop steps NB points, so every slot index is known at compile time),
+// and a window adds its blocks in order: each product is taken once, not
+// twice as in a running window, and no sum drifts.
+template <int NB, typename X, typename Fn>
+__device__ __forceinline__ void scan_blocks(const X& x, int i0, int i1, Fn&& fn) {
+  constexpr int S = LAG / NB;
+  Win ring[NB];
+#pragma unroll
+  for (int k = 0; k < NB - 1; ++k) ring[k] = block_sums<S>(x, (i0 + k) * S);
+  for (int i = i0; i < i1; i += NB) {
+#pragma unroll
+    for (int u = 0; u < NB; ++u) {
+      if (i + u >= i1) return;
+      ring[(u + NB - 1) % NB] = block_sums<S>(x, (i + u + NB - 1) * S);
+      Win w = ring[u];
+#pragma unroll
+      for (int k = 1; k < NB; ++k) w.add(ring[(u + k) % NB]);
+      if (fn(i + u, w.metric())) return;
+    }
+  }
+}
+
+// Visit M at grid points i0 .. i1-1 (window start d = i*stride); fn(i, M)
+// returns true to stop.  Strides of 16 and up take block sums; finer grids
+// a running window, whose step adds and takes away `stride` products.
+template <typename X, typename Fn>
+__device__ __forceinline__ void scan_metric(const X& x, int stride, int i0, int i1, Fn&& fn) {
   if (i0 >= i1) return;
+  switch (stride) {
+    case 16: return scan_blocks<4>(x, i0, i1, fn);
+    case 32: return scan_blocks<2>(x, i0, i1, fn);
+    case 64: return scan_blocks<1>(x, i0, i1, fn);
+  }
   Win w;
   for (int j = i0 * stride; j < i0 * stride + LAG; ++j) w.add(x, j, 1.0);
   for (int i = i0;;) {
@@ -138,11 +268,61 @@ __device__ __forceinline__ void scan_metric(const Stream<T>& x, int stride, int 
   }
 }
 
+// The peak metric over grid points [i_lo, i_hi), chunk `ch` of WARPS
+template <typename X>
+__device__ __forceinline__ double peak_chunk(const X& x, int stride, int i_lo, int i_hi, int ch) {
+  const int chunk = (max(i_hi - i_lo, 0) + WARPS - 1) / WARPS;
+  double peak = 0.0;
+  scan_metric(x, stride, i_lo + ch * chunk, min(i_hi, i_lo + (ch + 1) * chunk), [&](int, double m) {
+    peak = fmax(peak, m);
+    return false;
+  });
+  return peak;
+}
+
+// |MF| at MF_RUN consecutive offsets from staged rows: row q + t meets tap
+// t in output q.  The thread keeps MF_RUN rows in registers (a ring: at tap
+// t, slot (t + k) % MF_RUN holds row t + k) and walks the taps in order, so
+// each output sums its taps in increasing t, in Acc, rounded to f32 once.
+template <typename P>
+__device__ __forceinline__ void mf_run(const P* rows, const double2* h, float (&mag)[MF_RUN]) {
+  using Acc = double;
+  Acc wr[MF_RUN], wi[MF_RUN], yr[MF_RUN], yi[MF_RUN];
+#pragma unroll
+  for (int i = 0; i < MF_RUN - 1; ++i) {
+    const double2 v = unpack(rows[i]);
+    wr[i] = v.x;
+    wi[i] = v.y;
+  }
+#pragma unroll
+  for (int k = 0; k < MF_RUN; ++k) yr[k] = yi[k] = 0.0;
+  for (int t0 = 0; t0 < LAG; t0 += MF_RUN) {
+#pragma unroll
+    for (int j = 0; j < MF_RUN; ++j) {
+      const double2 v = unpack(rows[t0 + j + MF_RUN - 1]);
+      wr[(j + MF_RUN - 1) % MF_RUN] = v.x;
+      wi[(j + MF_RUN - 1) % MF_RUN] = v.y;
+      const Acc hr = h[t0 + j].x, hi = h[t0 + j].y;
+#pragma unroll
+      for (int k = 0; k < MF_RUN; ++k) {
+        const int w = (j + k) % MF_RUN;
+        yr[k] += wr[w] * hr + wi[w] * hi;
+        yi[k] += wi[w] * hr - wr[w] * hi;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < MF_RUN; ++k) mag[k] = static_cast<float>(sqrt(yr[k] * yr[k] + yi[k] * yi[k]));
+}
+
 // Detection of stream f (live lanes only load).  Every thread of the block
 // calls it (it holds __syncthreads) and gets its lane's result.
 template <typename T>
 __device__ Result run(const Config& c, Smem& s, long long f, bool live, int lane, int g) {
-  const Stream<T> x{static_cast<const T*>(c.x_re), static_cast<const T*>(c.x_im), c.batch, f};
+  using P = typename Pair<T>::type;
+  const T* xr = static_cast<const T*>(c.x_re);
+  const T* xi = static_cast<const T*>(c.x_im);
+  const Stream<T> x{xr, xi, c.batch, f};
   const int st = c.stride;
   const int nm = c.decimated ? (c.ns - LAG) / st - LAG / st + 1 : c.ns - 2 * LAG + 1;
   for (int t = threadIdx.x; t < LAG; t += THREADS) s.h[t] = make_double2(c.h_re[t], c.h_im[t]);
@@ -159,103 +339,158 @@ __device__ Result run(const Config& c, Smem& s, long long f, bool live, int lane
         }
         return false;
       });
-    s.ired[g][lane] = first;
+    s.ired[g * LANES + lane] = first;
   }
   __syncthreads();
   int cross = nm;
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) cross = min(cross, s.ired[w][lane]);
+  for (int w = 0; w < WARPS; ++w) cross = min(cross, s.ired[w * LANES + lane]);
   const bool det = live && cross < nm;
   const int coarse = c.decimated ? max(cross * st - st, 0) : cross;
-  const int search = c.search + (c.decimated ? st : 0);
+  const int sf = c.search + (c.decimated ? st : 0);
+  const int n_pair = c.ns - 2 * LAG - 4;  // pair entries, NS-132
 
-  // -- 2. peak metric over the window (samples; grid points inside it) --------
-  {
-    const int lo_m = det ? coarse : 0;
-    const int hi_m = lo_m + (det ? 2 * search : 2 * c.search);
-    const int i_lo = (lo_m + st - 1) / st;
-    const int i_hi = min(nm, (hi_m + st - 1) / st);
-    const int chunk = (max(i_hi - i_lo, 0) + WARPS - 1) / WARPS;
-    double peak = 0.0;
-    if (live)
-      scan_metric(x, st, i_lo + g * chunk, min(i_hi, i_lo + (g + 1) * chunk),
-                  [&](int, double m) {
-                    peak = fmax(peak, m);
-                    return false;
-                  });
-    s.dred[g][lane] = peak;
+  // -- the peak metric of an undetected stream, over [0, 2*search) (every
+  // such lane reads the same rows); the windows of the others ----------------
+  s.dred[g * LANES + lane] =
+      live && !det ? peak_chunk(x, st, 0, min(nm, (2 * c.search + st - 1) / st), g) : 0.0;
+  if (g == 0) {
+    const int i_end = det ? min(coarse + 2 * sf, n_pair) : coarse;
+    s.lo[lane] = det ? coarse : -1;
+    s.hi[lane] = det ? min(c.ns, coarse + 2 * sf + WIN_EXTRA) : 0;
+    s.n_mf[lane] = i_end > coarse ? i_end - coarse + MF_EXTRA : 0;
   }
   __syncthreads();
-  double peak = 0.0;
+  if (g == 0) {
+    double peak = 0.0;
 #pragma unroll
-  for (int w = 0; w < WARPS; ++w) peak = fmax(peak, s.dred[w][lane]);
-  __syncthreads();  // dred and ired are free again
+    for (int w = 0; w < WARPS; ++w) peak = fmax(peak, s.dred[w * LANES + lane]);
+    s.peak[lane] = static_cast<float>(peak);
+    s.best[lane] = 0;
+  }
 
-  // -- 3. matched filter over the rows the pair window reads -------------------
-  const int n_pair = c.ns - 2 * LAG - 4;              // pair entries, NS-132
-  const int i_end = det ? min(coarse + 2 * search, n_pair) : coarse;
-  const int n_mf = i_end > coarse ? i_end - coarse + MF_EXTRA : 0;
-  // warp g takes runs of MF_RUN consecutive offsets; one pass over the
-  // run's MF_RUN + 63 rows feeds all of them (a row is loaded once per run,
-  // not once per tap)
-  float(*mf)[LANES] = reinterpret_cast<float(*)[LANES]>(s.mf);
-  for (int q0 = g * MF_RUN; q0 < n_mf; q0 += WARPS * MF_RUN) {
-    double yr[MF_RUN], yi[MF_RUN];
+  // -- 2-4. the detected streams' windows, G streams at a time ----------------
+  const Layout lay = layout<T>(c.search, st, c.decimated);
+  const int lg = lay.log2_group, gs = 1 << lg, sp = lay.row_stride;
+  P* stage = reinterpret_cast<P*>(s.rest);
+  float* mf = reinterpret_cast<float*>(reinterpret_cast<char*>(&s) + lay.mf_at);
+  const int t = threadIdx.x;
+  const int js = t & (gs - 1);  // the thread's stream in the group, in every item below
+  const long long f0 = f - lane;
+  for (int g0 = 0; g0 < LANES; g0 += gs) {
+    int r_lo = c.ns, r_hi = 0;  // the group's union of windows (the same in every thread)
+    for (int j = 0; j < gs; ++j)
+      if (s.lo[g0 + j] >= 0) {
+        r_lo = min(r_lo, s.lo[g0 + j]);
+        r_hi = max(r_hi, s.hi[g0 + j]);
+      }
+    if (r_lo >= r_hi) continue;
+    const int lo = s.lo[g0 + js], hi = s.hi[g0 + js];
+
+    // 2. the copy: rows r_lo + t / G, then every THREADS / G rows
+    {
+      const int step = THREADS >> lg;
+      const long long col = f0 + g0 + js;
+      P* dst = stage + js * sp - lo;
+      for (int r0 = r_lo + (t >> lg); r0 < r_hi; r0 += COPY_UNROLL * step) {
+        T re[COPY_UNROLL], im[COPY_UNROLL];
 #pragma unroll
-    for (int k = 0; k < MF_RUN; ++k) yr[k] = yi[k] = 0.0;
-    for (int r = 0; r < MF_RUN + LAG - 1; ++r) {
-      const int row = coarse + q0 + r;
-      if (row >= c.ns) break;
-      const double2 v = x.at(row);
+        for (int u = 0; u < COPY_UNROLL; ++u) {
+          const int r = r0 + u * step;
+          if (r >= lo && r < hi) {
+            re[u] = xr[r * c.batch + col];
+            im[u] = xi[r * c.batch + col];
+          }
+        }
 #pragma unroll
-      for (int k = 0; k < MF_RUN; ++k) {
-        const int t = r - k;  // the tap this row meets in output q0 + k
-        if (t >= 0 && t < LAG) {
-          const double2 h = s.h[t];
-          yr[k] += v.x * h.x + v.y * h.y;
-          yi[k] += v.y * h.x - v.x * h.y;
+        for (int u = 0; u < COPY_UNROLL; ++u) {
+          const int r = r0 + u * step;
+          if (r >= lo && r < hi) dst[r] = pair_of(re[u], im[u]);
         }
       }
     }
-#pragma unroll
-    for (int k = 0; k < MF_RUN; ++k)
-      if (q0 + k < n_mf) mf[q0 + k][lane] = static_cast<float>(sqrt(yr[k] * yr[k] + yi[k] * yi[k]));
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // -- 4. first argmax of pair over [coarse, i_end) ----------------------------
-  {
-    double best = 0.0;
-    int best_i = 0;
-    auto mf5 = [&](int q) {
-      return ((static_cast<double>(mf[q][lane]) + mf[q + 1][lane]) +
-              (static_cast<double>(mf[q + 2][lane]) + mf[q + 3][lane])) + mf[q + 4][lane];
-    };
-    for (int q = g; q < i_end - coarse; q += WARPS) {
-      const double pair = mf5(q) + mf5(q + LAG);
-      if (pair > best) {
-        best = pair;
-        best_i = coarse + q;
+    // 3. the peak metric in items (stream, chunk), then the matched filter in
+    // items (stream, run)
+    if (t < gs * WARPS)
+      s.pk[t] = lo >= 0 ? peak_chunk(Staged<P>{stage + js * sp, lo}, st, (lo + st - 1) / st,
+                                     min(nm, (lo + 2 * sf + st - 1) / st), t >> lg)
+                        : 0.0;
+    {
+      const int n = s.n_mf[g0 + js];
+      const int runs = (lay.n_mf + MF_RUN - 1) / MF_RUN;
+      for (int item = t; item < runs << lg; item += THREADS) {
+        const int q0 = (item >> lg) * MF_RUN;
+        if (q0 >= n) continue;
+        float mag[MF_RUN];
+        mf_run(stage + js * sp + q0, s.h, mag);
+#pragma unroll
+        for (int k = 0; k < MF_RUN; ++k)
+          if (q0 + k < n) mf[((q0 + k) << lg) + js] = mag[k];
       }
     }
-    s.dred[g][lane] = best;
-    s.ired[g][lane] = best_i;
+    __syncthreads();
+
+    // 4. the first argmax of pair over [lo, i_end), slice t / G of each window
+    {
+      double best = 0.0;
+      int best_i = 0;
+      auto at = [&](int q) { return static_cast<double>(mf[(q << lg) + js]); };
+      auto mf5 = [&](int q) { return ((at(q) + at(q + 1)) + (at(q + 2) + at(q + 3))) + at(q + 4); };
+      const int n_q = s.n_mf[g0 + js] - MF_EXTRA;
+      for (int q = t >> lg; q < n_q; q += THREADS >> lg) {
+        const double pair = mf5(q) + mf5(q + LAG);
+        if (pair > best) {
+          best = pair;
+          best_i = lo + q;
+        }
+      }
+      s.dred[t] = best;
+      s.ired[t] = best_i;
+    }
+    __syncthreads();
+    if (t < gs && lo >= 0) {
+      double peak = 0.0, best = 0.0;
+      int best_i = 0;
+      for (int ch = 0; ch < WARPS; ++ch) peak = fmax(peak, s.pk[(ch << lg) + t]);
+      for (int sl = 0; sl < THREADS >> lg; ++sl) {
+        const double v = s.dred[(sl << lg) + t];
+        const int i = s.ired[(sl << lg) + t];
+        if (v > best || (v == best && v > 0.0 && i < best_i)) {
+          best = v;
+          best_i = i;
+        }
+      }
+      s.peak[g0 + t] = static_cast<float>(peak);
+      s.best[g0 + t] = best_i;
+    }
+    __syncthreads();  // the stage, the |MF| values and the partials are free
   }
   __syncthreads();
-  double best = 0.0;
-  int best_i = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    const double v = s.dred[w][lane];
-    const int i = s.ired[w][lane];
-    if (v > best || (v == best && v > 0.0 && i < best_i)) {
-      best = v;
-      best_i = i;
-    }
-  }
+  const float peak = s.peak[lane];
+  const int start = s.best[lane] + 2 - 32 - c.advance;
   __syncthreads();  // shared memory is free for the caller
-  const int start = best_i + 2 - 32 - c.advance;
-  return Result{det ? 1 : 0, det ? coarse : -1, det ? start : -1, static_cast<float>(peak)};
+  return Result{det ? 1 : 0, det ? coarse : -1, det ? start : -1, peak};
+}
+
+// A kernel's registers and local (spill) bytes a thread, shared bytes a
+// block (static, plus `smem` dynamic) and resident blocks of `threads` per
+// SM on the current card, into out[0..3].
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
+  out[3] = blocks;
+  return err;
 }
 
 // The row the aligned frame starts at: start, or 0 when undetected, clipped

@@ -14,13 +14,12 @@
 // comes out bf16.  stream_sums turns on the EVM sums and passes a null eq.
 //
 // What bounds it on this card.  The detection stage (detect.cuh: the f64
-// matched filter over ~2*search + 68 offsets, the metric scan) and the
-// chain's DFT arithmetic (chain.cuh: ~2.2e5 f32 FMAs per stream).  The
-// chain's loads now start at a different row in every lane, so a warp's
-// row load touches up to 32 rows instead of one 64-byte (bf16) span: up to
-// 16x the sectors of the fused chain's loads, served mostly by L1/L2.
-// Staging each block's row span in shared memory would restore coalesced
-// loads; that is later work.
+// matched filter over ~2*search + 68 offsets from windows staged in shared
+// memory, the metric scan) and the chain's DFT arithmetic (chain.cuh:
+// ~2.2e5 f32 FMAs per stream).  The chain's loads start at a different row
+// in every lane, so a warp's row load touches up to 32 rows instead of one
+// 64-byte (bf16) span: up to 16x the sectors of the fused chain's loads,
+// served mostly by L1/L2.  Staging them as detection does is later work.
 
 #include "chain.cuh"
 #include "detect.cuh"
@@ -60,12 +59,17 @@ __global__ void __launch_bounds__(chain::THREADS, 2) raw_chain_kernel(RawParams 
                                  lane, g, row0, row0 + chain::PREAMBLE);
 }
 
+// the shared memory of a block: one union for detection and the chain
+template <typename T>
+size_t smem_of(int search, int stride, int decimated) {
+  const size_t det_smem = detect::smem_bytes<T>(search, stride, decimated);
+  return det_smem > sizeof(chain::Smem) ? det_smem : sizeof(chain::Smem);
+}
+
 template <typename T, bool SYNC, bool EVM>
 cudaError_t launch_one(const RawParams& p, cudaStream_t stream) {
   auto kernel = raw_chain_kernel<T, SYNC, EVM>;
-  const size_t det_smem = detect::smem_bytes(p.det_cfg.search, p.det_cfg.stride,
-                                             p.det_cfg.decimated);
-  const size_t smem = det_smem > sizeof(chain::Smem) ? det_smem : sizeof(chain::Smem);
+  const size_t smem = smem_of<T>(p.det_cfg.search, p.det_cfg.stride, p.det_cfg.decimated);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -80,6 +84,16 @@ cudaError_t launch(const RawParams& p, bool sync, bool evm, cudaStream_t stream)
                        : launch_one<T, true, false>(p, stream);
   return evm ? launch_one<T, false, true>(p, stream)
              : launch_one<T, false, false>(p, stream);
+}
+
+template <typename T>
+cudaError_t attributes(bool sync, bool evm, int search, int stride, int decimated, int* out) {
+  constexpr int n = chain::THREADS;
+  const size_t smem = smem_of<T>(search, stride, decimated);
+  if (sync) return evm ? detect::occupancy(raw_chain_kernel<T, true, true>, n, smem, out)
+                       : detect::occupancy(raw_chain_kernel<T, true, false>, n, smem, out);
+  return evm ? detect::occupancy(raw_chain_kernel<T, false, true>, n, smem, out)
+             : detect::occupancy(raw_chain_kernel<T, false, false>, n, smem, out);
 }
 
 }  // namespace
@@ -130,6 +144,23 @@ extern "C" int raw_chain_launch(const void* const* ptrs, int n_ptrs, int storage
     case chain::STORE_F32: return launch<float>(p, sync != 0, stream_sums != 0, st);
     case chain::STORE_BF16: return launch<__nv_bfloat16>(p, sync != 0, stream_sums != 0, st);
     case chain::STORE_I8: return launch<int8_t>(p, sync != 0, stream_sums != 0, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The kernel that raw_chain_launch runs for this storage, sync and
+// stream_sums, search and metric stride, on the current card: out =
+// registers and local (spill) bytes a thread, shared bytes a block,
+// resident blocks per SM.
+extern "C" int raw_chain_attributes(int storage, int sync, int stream_sums, int search,
+                                    int stride, int decimated, int* out) {
+  if (search < 1 || stride < 1 || detect::LAG % stride != 0) return cudaErrorInvalidValue;
+  const bool sy = sync != 0, evm = stream_sums != 0;
+  switch (storage) {
+    case chain::STORE_F32: return attributes<float>(sy, evm, search, stride, decimated, out);
+    case chain::STORE_BF16:
+      return attributes<__nv_bfloat16>(sy, evm, search, stride, decimated, out);
+    case chain::STORE_I8: return attributes<int8_t>(sy, evm, search, stride, decimated, out);
   }
   return cudaErrorInvalidValue;
 }

@@ -49,7 +49,7 @@
 // those stores took 3.6 of 8.4 ms (PERF.md).  Now: per stream ~2,050
 // Box-Muller pairs and a Philox call each in f64, 16 IDFTs (2.2e5 f64
 // FMAs), the field written once (16 KB) and read by detection, then
-// raw_chain's detection (scattered matched-filter loads) and chain (FP32
+// raw_chain's detection (f64 matched filter on staged windows) and chain (FP32
 // DFTs), which take most of the time.  The field alone is >= 0.16 ms of
 // HBM writes at B = 32,768, NS = 2,048.
 
@@ -317,7 +317,7 @@ __global__ void __launch_bounds__(THREADS, 2) raw_gen_kernel(RawGenParams p) {
 // the shared memory of a block: one union for the synthesis, detection and
 // the chain
 size_t smem_of(int search, int stride) {
-  size_t smem = detect::smem_bytes(search, stride, 1);
+  size_t smem = detect::smem_bytes<float>(search, stride, 1);
   if (smem < sizeof(chain::Smem)) smem = sizeof(chain::Smem);
   if (smem < sizeof(SynthSmem)) smem = sizeof(SynthSmem);
   return smem;
@@ -337,20 +337,7 @@ cudaError_t launch(const RawGenParams& p, cudaStream_t stream) {
 
 template <bool SYNC>
 cudaError_t attributes(int search, int stride, int* out) {
-  auto kernel = raw_gen_kernel<SYNC>;
-  const size_t smem = smem_of(search, stride);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
-  out[3] = blocks;
-  return err;
+  return detect::occupancy(raw_gen_kernel<SYNC>, THREADS, smem_of(search, stride), out);
 }
 
 }  // namespace

@@ -34,6 +34,7 @@ from tpu80211_torch.kernels.fused_chain import pointer_table, raise_on_error
 from tpu80211_torch.ops.detect import DEFAULT_THRESHOLD, LAG, WIN
 
 FRAME = C.PREAMBLE_SAMPLES + C.PACKET_SAMPLES  # 1360 rows cut per stream
+MIN_NS = -(-FRAME // LAG) * LAG                # 1408: the least multiple of 64 that holds a frame
 MF_CHUNK = 2 * LAG                             # matched-filter rows per band product
 MAX_SEARCH = 512  # the matched filter's window must fit one block's shared memory
 STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -82,6 +83,14 @@ def mf_taps(lts_ref: Cplx) -> Cplx:
     return lts_ref.map(band)
 
 
+def check_length(ns: int) -> None:
+    """Raise unless ``ns`` rows are a multiple of 64 that holds a frame
+    (at least ``MIN_NS``), as the kernels and the JAX detector take."""
+    if ns % LAG or ns < MIN_NS:
+        raise ValueError(f"NS must be a multiple of {LAG} that holds the {FRAME}-row frame "
+                         f"(at least {MIN_NS}), got {ns}")
+
+
 def check_streams(x: Cplx, lts_ref: Cplx, search: int) -> None:
     """Raise on streams or taps the kernels do not take."""
     if x.re.dtype not in STORAGE or x.im.dtype != x.re.dtype:
@@ -93,9 +102,7 @@ def check_streams(x: Cplx, lts_ref: Cplx, search: int) -> None:
     ns, b = x.re.shape
     if b < 1:
         raise ValueError("empty batch")
-    if ns % LAG or ns < FRAME + LAG:
-        raise ValueError(f"NS must be a multiple of {LAG} and at least {FRAME + LAG} "
-                         f"(the frame plus one LTS lag), got {ns}")
+    check_length(ns)
     if not 1 <= search <= MAX_SEARCH:
         raise ValueError(f"search must be in [1, {MAX_SEARCH}], got {search}")
     for t in (*x, *lts_ref):
@@ -229,6 +236,8 @@ def bind(lib):
     lib.place_launch.restype = ctypes.c_int
     lib.place_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.place_attributes.restype = ctypes.c_int
+    lib.detect_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.detect_attributes.restype = ctypes.c_int
     lib.detect_error_string.argtypes = [ctypes.c_int]
     lib.detect_error_string.restype = ctypes.c_char_p
     return lib
@@ -249,7 +258,24 @@ def place_attributes(sig_dtype: torch.dtype, noise_dtype: torch.dtype, ns: int,
     out = (ctypes.c_int * 5)()
     raise_on_error(lib.place_attributes(STORAGE[sig_dtype], STORAGE[noise_dtype], ns, batch, out),
                    "place", lib.detect_error_string)
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "strip"), out))
+    return dict(zip((*ATTRIBUTES, "strip"), out))
+
+
+ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
+
+
+def detect_attributes(dtype: torch.dtype = torch.bfloat16, search: int = 192,
+                      decimate=16, lib=None) -> dict:
+    """The detection kernel for streams of ``dtype`` (with or without
+    alignment), on the current card: registers and local (spill) bytes a
+    thread, shared bytes a block, and resident blocks per SM (32 streams a
+    block).  ``lib``: `bind` of another build of the source."""
+    lib = lib or _lib()
+    stride, decimated = stride_of(decimate)
+    out = (ctypes.c_int * 4)()
+    raise_on_error(lib.detect_attributes(STORAGE[dtype], search, stride, decimated, out),
+                   "detect", lib.detect_error_string)
+    return dict(zip(ATTRIBUTES, out))
 
 
 def detection_rows(b: int, device: torch.device) -> list:
@@ -260,12 +286,14 @@ def detection_rows(b: int, device: torch.device) -> list:
 
 
 def _launch_detect(x: Cplx, lts_ref: Cplx, threshold, search, advance, decimate,
-                   align: bool):
+                   align: bool, lib=None):
+    """One launch; ``lib`` = `bind` of another build of the source (the card
+    probe's variants), else the package's own."""
     global launches
     check_streams(x, lts_ref, search)
     require_cuda(x.re)
     stride, decimated = stride_of(decimate)
-    lib = _lib()
+    lib = lib or _lib()
     ns, b = x.re.shape
     dev = x.re.device
     rows = detection_rows(b, dev)

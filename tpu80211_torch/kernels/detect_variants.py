@@ -1,0 +1,166 @@
+"""What each part of the detection body costs on the card: build variants of
+``csrc/detect.cuh`` (and of ``csrc/raw_chain.cu``) and time them beside the
+kernels as they are.
+
+    python -m tpu80211_torch.kernels.detect_variants
+
+A variant is the source with text replaced (``OLD -> NEW``; ``_variants``
+builds and times them).  Most variants give wrong results on purpose: the
+time a variant saves is what the removed part costs.  ``DIAGNOSTICS`` edit
+``detect.cuh``, the body that ``detect.cu``, ``raw_chain.cu`` and
+``raw_gen_chain.cu`` share; each builds into ``detect.cu`` and
+``raw_chain.cu``:
+
+* ``no_mf_loads``: the matched filter multiplies made-up rows in place of
+  the staged ones (the price of its shared-memory reads);
+* ``shared_rows``: every stream's window is lane 0's (the same rows, so
+  the copy walks one window, not the union of 32): the price of the windows'
+  spread;
+* ``f32_mf``: the matched filter accumulates in f32 (the price of the f64
+  arithmetic; its results are wrong on purpose);
+* ``no_copy``: the windows are not staged (the price of the copy);
+* ``no_peak_scan``: the detected streams' peak metric is skipped;
+* ``running_scan``: the scans take a running window (each product added,
+  then taken away) in place of block sums (the price of the running form);
+* ``no_scan``: the threshold scan is skipped: lane l crosses at grid point
+  2 + l mod 38, so the windows spread as the workload's do;
+* ``no_mf``: the matched filter is skipped.
+
+The parent body (each lane reading its own window from device memory) was
+probed with the same diagnostics on its own lines: ``no_mf_loads``,
+``f32_mf``, ``no_peak_scan``, ``no_scan`` and ``no_mf`` as above, and
+``shared_rows`` as every lane reading lane 0's window (PERF.md §5); its
+scans took the running window.
+
+``CHAIN_DIAGNOSTICS`` edit ``raw_chain.cu`` alone:
+
+* ``lane0_chain_rows``: the chain reads every lane's frame at lane 0's rows
+  (coalesced), which prices the chain's scattered loads.
+
+Each variant is timed through ``detect_streams`` and through
+``raw_rx_txconst_fused`` at ``bench.py --raw``'s shape: B = 32,768 bf16
+streams of NS = 2,048 samples, the capture's frame at offsets in
+[40, NS − 1,400) over 1e-4 AWGN, decimate 16, ``stream_sums``, h_mmse.
+Prints the card, nvcc's registers and spill stores per instantiation, each
+build's kernel attributes at that shape (bf16), and ms per call (CUDA
+events, median of 5 runs of 10 calls).  Needs a CUDA card and nvcc; the
+builds go to a temporary directory.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+from tpu80211_torch.cplx import Cplx
+from tpu80211_torch.datasets.loader import load_capture
+from tpu80211_torch.kernels import _build, _variants
+from tpu80211_torch.kernels import detect_kernel as D
+from tpu80211_torch.kernels import fused_chain as F
+from tpu80211_torch.kernels import raw_chain as R
+
+HEADER = "detect.cuh"
+SOURCES = {"detect": _build.CSRC / "detect.cu", "raw_chain": _build.CSRC / "raw_chain.cu"}
+B, NS, SEED, NOISE = 32768, 2048, 0, 1e-4
+
+DIAGNOSTICS = {
+    "no_mf_loads": (
+        "      const double2 v = unpack(rows[t0 + j + MF_RUN - 1]); -> "
+        "      const double2 v = make_double2(0.25 * j, 0.5 - 0.125 * t0);"),
+    "shared_rows": (
+        "  if (g == 0) {\n    const int i_end -> "
+        "  const int coarse_w = __shfl_sync(0xffffffffu, coarse, 0);\n"
+        "  if (g == 0) {\n    const int coarse = coarse_w;\n    const int i_end"),
+    "f32_mf": "  using Acc = double; ->   using Acc = float;",
+    "no_copy": (
+        "r0 < r_hi; r0 += COPY_UNROLL * step) { -> r0 < 0 * r_hi; r0 += COPY_UNROLL * step) {"),
+    "no_peak_scan": (
+        "    if (t < gs * WARPS)\n      s.pk[t] -> "
+        "    if (false)\n      s.pk[t]"),
+    "running_scan": (
+        "  switch (stride) {\\n    case 16: -> "
+        "  switch (0) {\\n    case 16:"),
+    "no_scan": (
+        "    int first = nm;\n    if (live)\n      scan_metric(x, st, g * chunk -> "
+        "    int first = g == 0 ? 2 + static_cast<int>(f % 38) : nm;\n"
+        "    if (false)\n      scan_metric(x, st, g * chunk"),
+    "no_mf": "        if (q0 >= n) continue; ->         if (q0 >= 0 * n) continue;",
+}
+CHAIN_DIAGNOSTICS = {
+    "lane0_chain_rows": (
+        "  const long long row0 = detect::frame_row(r, p.det_cfg.ns); -> "
+        "  const long long row0 = __shfl_sync(0xffffffffu, detect::frame_row(r, p.det_cfg.ns), 0);"),
+}
+
+
+def streams(dev) -> Cplx:
+    """The raw workload: the capture's frame placed at seeded offsets in
+    [40, NS − 1,400) of every stream over AWGN, bf16 (placed by the plain
+    version, so no kernel under test makes its own input)."""
+    cap = load_capture()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frame = np.concatenate([cap.rx_lptot, cap.rx_packet])
+    sig = Cplx(*(torch.zeros((NS, B), dtype=torch.bfloat16, device=dev) for _ in range(2)))
+    for plane, part in zip(sig, (frame.real, frame.imag)):
+        plane[:frame.size] = torch.tensor(part, dtype=torch.float32, device=dev)[:, None]
+    noise = Cplx(*(NOISE * torch.randn((NS, B), generator=gen, device=dev) for _ in range(2)))
+    offs = torch.randint(40, NS - 1400, (B,), generator=gen, device=dev, dtype=torch.int32)
+    return D.place_plain(sig, noise, offs)
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        print("detect_variants: no CUDA device", file=sys.stderr)
+        return 1
+    if argv:
+        print("detect_variants takes no arguments", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    print(_variants.card())
+    cap = load_capture()
+    txc = F.tx_spectra(*(Cplx(*(torch.tensor(v, dtype=torch.float32, device=dev).contiguous()
+                                for v in (a.real, a.imag))) for a in (cap.tx_packet, cap.tx_lptot)))
+    lts = Cplx(*(torch.tensor(v.copy(), dtype=torch.float32, device=dev)
+                 for v in (cap.tx_lptot[-64:].real, cap.tx_lptot[-64:].imag)))
+    x = streams(dev)
+    header_variants = {"as_is": "", **{name: {HEADER: e} for name, e in DIAGNOSTICS.items()}}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        built = {tag: _variants.build(src, {**header_variants, **(
+                     CHAIN_DIAGNOSTICS if tag == "raw_chain" else {})}, out / tag)
+                 for tag, src in SOURCES.items()}
+        for tag, libs in built.items():
+            for name, (_, regs, spills) in libs.items():
+                print(f"{tag} {name}: registers {regs}, spill stores {spills} "
+                      "(instantiations in nvcc's order)")
+        want = None
+        for name, (lib, _, _) in built["detect"].items():
+            lib = D.bind(lib)
+            run = lambda: D._launch_detect(x, lts, D.DEFAULT_THRESHOLD, 192, 4, 16,  # noqa: E731
+                                           False, lib=lib)
+            got = run()
+            want = want or got
+            same = torch.equal(got.start, want.start)
+            print(f"detect {name}: {_variants.time_ms(run):.4f} ms; detected "
+                  f"{int(got.detected.sum())} of {B}, starts {'==' if same else '!='} as_is; "
+                  f"{D.detect_attributes(torch.bfloat16, lib=lib)}", flush=True)
+        want = None
+        for name, (lib, _, _) in built["raw_chain"].items():
+            kernel = R.bind(lib)
+            run = lambda: R._launch(x, lts, *txc, None, 192, 4, 0.0, False, False,  # noqa: E731
+                                    None, None, 1.0, True, "h_mmse", 16, kernel=kernel)
+            got = run()
+            want = want or got
+            same = torch.equal(got["start"], want["start"])
+            print(f"raw_chain {name}: {_variants.time_ms(run):.4f} ms; detected "
+                  f"{int(got['detected'].sum())} of {B}, starts {'==' if same else '!='} as_is; "
+                  f"{R.kernel_attributes(lib=lib)}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -60,7 +60,7 @@ def raw_chain_plain(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx,
                               evm_sums=stream_sums)
     if stream_sums:
         out["eq"] = None
-    out.update(detected=det.detected, start=det.start, metric=det.metric)
+    out.update(detected=det.detected, coarse=det.coarse, start=det.start, metric=det.metric)
     return out
 
 
@@ -72,7 +72,7 @@ def raw_rx_txconst_fused(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx,
                          decimate=True) -> dict:
     """The raw receiver: lane-major (NS, B) streams (float32, bfloat16, or
     int8 ADC words with ``lsb`` their step) → `fused_chain`'s output dict
-    plus ``detected``/``start``/``metric`` rows.  ``lts_ref``: the (64,)
+    plus ``detected``/``coarse``/``start``/``metric`` rows.  ``lts_ref``: the (64,)
     float32 LTS; ``txs``/``tpre``: the tx-constant spectra.
 
     ``stream_sums=True`` is the streaming configuration: ``evm_sums`` (B,)
@@ -88,31 +88,57 @@ def raw_rx_txconst_fused(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx,
     return _launch(x, lts_ref, txs, tpre, **kw)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    lib = _build.load("raw_chain")
+def bind(lib):
+    """(launch, error string) of a library built from csrc/raw_chain.cu (or
+    from a variant of it), with the ctypes signatures of its functions set."""
     fn = lib.raw_chain_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                    ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.raw_chain_attributes.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    lib.raw_chain_attributes.restype = ctypes.c_int
     err_string = lib.raw_chain_error_string
     err_string.argtypes = [ctypes.c_int]
     err_string.restype = ctypes.c_char_p
     return fn, err_string
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    return bind(_build.load("raw_chain"))
+
+
+def kernel_attributes(dtype: torch.dtype = torch.bfloat16, sync: bool = False,
+                      stream_sums: bool = True, search: int = 192, decimate=True,
+                      lib=None) -> dict:
+    """The kernel that `raw_rx_txconst_fused` launches for streams of
+    ``dtype`` with these options, on the current card: registers and local
+    (spill) bytes a thread, shared bytes a block, and resident blocks per SM
+    (32 streams a block).  ``lib``: another build of the source."""
+    lib = lib or _build.load("raw_chain")
+    _, err_string = bind(lib)
+    stride, decimated = D.stride_of(decimate)
+    out = (ctypes.c_int * 4)()
+    F.raise_on_error(lib.raw_chain_attributes(D.STORAGE[dtype], int(sync), int(stream_sums),
+                                              search, stride, decimated, out),
+                     "raw_chain", err_string)
+    return dict(zip(D.ATTRIBUTES, out))
+
+
 def _launch(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx, threshold, search, advance, eps,
             sync, serve, wiener_model, wiener_snr_db, lsb, stream_sums, equalize_with,
-            decimate) -> dict:
+            decimate, kernel=None) -> dict:
+    """One launch; ``kernel`` = `bind` of another build of the source (the
+    card probe's variants), else the package's own."""
     global launches
     thr = D.DEFAULT_THRESHOLD if threshold is None else threshold
     D.check_streams(x, lts_ref, search)
     _check_tx(x, txs, tpre, equalize_with)
     require_cuda(x.re)
     stride, decimated = D.stride_of(decimate)
-    fn, err_string = _kernel_fn()
+    fn, err_string = kernel or _kernel_fn()
     ns, b = x.re.shape
     dev = x.re.device
     storage = x.re.dtype
@@ -127,6 +153,6 @@ def _launch(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx, threshold, search, ad
                  int(advance), stride, decimated, torch.cuda.current_stream(dev).cuda_stream)
     F.raise_on_error(err, "raw_chain", err_string)
     launches += 1
-    det, _, start, metric = rows
-    out.update(detected=det != 0, start=start, metric=metric)
+    det, coarse, start, metric = rows
+    out.update(detected=det != 0, coarse=coarse, start=start, metric=metric)
     return out

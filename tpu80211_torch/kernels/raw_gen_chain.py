@@ -187,9 +187,8 @@ def gen_raw_plain(seed, batch: int, txs: Cplx, tpre: Cplx, lts_ref: Cplx, ns: in
 def _check(batch, ns, txs, tpre, lts_ref, equalize_with, cfo_khz) -> None:
     if batch < LANES or batch % LANES:
         raise ValueError(f"batch must be a positive multiple of {LANES}, got {batch}")
-    if ns % D.LAG:
-        raise ValueError(f"ns must be a multiple of {D.LAG}, got {ns}")
     span_of(ns)
+    D.check_length(ns)  # so the detection of the field takes it: ns >= 1408
     if cfo_khz < 0.0:
         raise ValueError(f"cfo_khz must be >= 0, got {cfo_khz}")
     G._check(batch, txs, tpre, torch.float32)
