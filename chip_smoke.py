@@ -19,7 +19,8 @@ nvcc per source, all started together), then:
    then again for the MMSE blend, serving mode, int8 ingestion and sync,
    and checks the outputs against the capture's anchors and, on a
    1024-frame slice, against the plain version;
-4. times the chain kernel and the plain version at that shape;
+4. times the chain kernel and the plain version at that shape (and per-frame
+   tx at B=32768), with their bounds and the kernel's occupancy;
 5. runs the raw receiver's path at bench.py's ``--raw`` size: B=32768
    streams of NS=2048 bf16 samples built on the card by the placement
    kernel, through the one-kernel receiver (decimate 16, then 32, then
@@ -68,7 +69,8 @@ nvcc per source, all started together), then:
 Every failed check raises, so the script exits non-zero.  The last two
 lines are JSON: the kernel table (each kernel's launches on its path, max
 abs error, card and plain ms, and its bound: bytes over 3.35 TB/s or
-operations over 67 T/s, whichever is larger), then the device summary.
+operations, the chain's bf16 DFT products over 989 T/s and the rest over
+67 T/s, whichever is larger), then the device summary.
 """
 
 from __future__ import annotations
@@ -119,10 +121,13 @@ B_GEN_SMALL = 1024  # phase 2c, and the plain version's slice of phase 7
 GEN_SEED = 7        # bench.py's generative seed
 N_STREAM = 4        # stream batches per generator in phase 7
 KERNELS = ("fused_chain", "detect", "raw_chain", "gen_chain", "raw_gen_chain", "mmse_solve")
-# the bound: the larger of bytes over the HBM rate and operations over the
-# f32 rate outside the tensor cores (NVIDIA's H100 SXM data sheet)
+# the bound: the larger of bytes over the HBM rate and operations over their
+# peak rates (NVIDIA's H100 SXM data sheet): the chain's DFTs on bf16
+# operands at the tensor cores' dense bf16 rate (the TPU kernel feeds them
+# to its MXU in bf16), every other operation at the f32 rate outside them
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 
 def check(ok: bool, msg: str) -> None:
@@ -591,6 +596,8 @@ def phase_raw_timing(raw_in, main_in, dev) -> dict:
     _, lp, pkt = D.detect_and_align(x, lts)
     chain_aligned = time_ms(lambda: F.fused_chain(pkt, lp, txc, consts, equalize_with="h_mmse",
                                                   evm_sums=True))
+    aligned_bound = bound(B_RAW * (CHAIN_OPS + EVM_OPS), nbytes(pkt, lp, txc, consts, F.fused_chain(
+        pkt, lp, txc, consts, equalize_with="h_mmse", evm_sums=True)), B_RAW * DFT_OPS)
     pk, lpm, txm = main_in
     t["chain_sync"] = in_turns(lambda: F.fused_chain(pk, lpm, txm, consts, sync=True),
                                lambda: F.fused_chain_plain(pk, lpm, txm, consts, sync=True))
@@ -610,7 +617,7 @@ def phase_raw_timing(raw_in, main_in, dev) -> dict:
         print(f"phase 6: {name}: kernel {k_ms:.4f} ms = {n / k_ms * 1e3:.4g} {unit}/s; "
               f"plain {p_ms:.4f} ms = {n / p_ms * 1e3:.4g} {unit}/s")
     print(f"phase 6: the chain kernel alone on the aligned frames (B={B_RAW}, evm_sums, h_mmse): "
-          f"{chain_aligned:.4f} ms")
+          f"{chain_aligned:.4f} ms, bound {aligned_bound[0]:.4f} ms ({aligned_bound[1]})")
     return t
 
 
@@ -654,13 +661,20 @@ def phase_timing(pk: Cplx, lp: Cplx, txc, dev) -> tuple[float, float]:
     f_ms, f_plain = in_turns(lambda: F.fused_chain(pk2, lp2, tx, consts),
                              lambda: F.fused_chain_plain(pk2, lp2, tx, consts))
     out = F.fused_chain(pk2, lp2, tx, consts)
-    f_bound = bound(B_RAW * (2 * DFT_OPS + CHAIN_OPS), nbytes(pk2, lp2, tx, consts, out))
+    f_bound = bound(B_RAW * CHAIN_OPS, nbytes(pk2, lp2, tx, consts, out),
+                    B_RAW * (DFT_OPS + TX_DFT_OPS))
+    k_out = F.fused_chain(pk, lp, txc, consts)
+    k_bound = bound(B_MAIN * CHAIN_OPS, nbytes(pk, lp, txc, consts, k_out), B_MAIN * DFT_OPS)
+    attrs = {tx_const: F.kernel_attributes(pk.re.dtype, tx_const) for tx_const in (True, False)}
     torch.cuda.synchronize()
     print(f"phase 4: B={B_MAIN} bf16 tx-constant: kernel {k_ms:.4f} ms ({k1:.4f}, {k2:.4f}) "
           f"= {B_MAIN / k_ms * 1e3:.4g} frames/s; plain {p_ms:.4f} ms ({p1:.4f}, {p2:.4f}) "
-          f"= {B_MAIN / p_ms * 1e3:.4g} frames/s")
+          f"= {B_MAIN / p_ms * 1e3:.4g} frames/s; bound {k_bound[0]:.4f} ms ({k_bound[1]})")
     print(f"phase 4: B={B_RAW} bf16 per-frame tx: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, "
           f"bound {f_bound[0]:.4f} ms ({f_bound[1]})")
+    for tx_const, at in attrs.items():
+        mode = "tx-constant" if tx_const else "per-frame tx"
+        print(f"phase 4: fused_chain kernel (bf16, {mode}, cp.async ring): {occupancy(at)}")
     return k_ms, p_ms
 
 
@@ -930,7 +944,7 @@ def phase_gen(cap, dev):
 def phase_gen_timing(gen_in, dev) -> dict:
     """8: the generative kernels against their plain versions, and one
     stream step per generator, serialized through the carried state."""
-    txc, lts = gen_in[:2]
+    txc, lts, _, raw = gen_in
     t = {"gen_chain": in_turns(
         lambda: G.fused_gen_chain(GEN_SEED, B_GEN, *txc, stream_sums=True),
         lambda: G.gen_chain_plain(GEN_SEED, B_GEN, *txc, stream_sums=True))}
@@ -960,10 +974,14 @@ def phase_gen_timing(gen_in, dev) -> dict:
     gen_rx = time_ms(lambda: SC.generate_rx_lane_major(seeded(), B_GEN, *txc))
     gen_raw = time_ms(lambda: SC.generate_raw_lane_major(seeded(), B_GEN, *txc, ns=NS))
     torch.cuda.synchronize()
+    raw_gen_bound = raw_gen_bound_of(B_GEN, G.channel_consts(dev).tscale.shape[0],
+                                     int(raw["detected"].sum()), nbytes(txc, lts, raw))
     for name in ("gen_chain", "raw_gen_chain"):
         k_ms, p_ms = t[name]
+        extra = (f"; bound {raw_gen_bound[0]:.4f} ms ({raw_gen_bound[1]})"
+                 if name == "raw_gen_chain" else "")
         print(f"phase 8: {name}: kernel {k_ms:.4f} ms = {B_GEN / k_ms * 1e3:.4g} frames/s; "
-              f"plain {p_ms:.4f} ms")
+              f"plain {p_ms:.4f} ms{extra}")
     print(f"phase 8: fused_gen_chain with full outputs at B={B_GEN}: {gen_full:.4f} ms")
     print(f"phase 8: raw_gen_chain anatomy: the raw receiver alone on its f32 field {recv:.4f} ms "
           f"(detection {det:.4f} ms), so synthesis ~{t['raw_gen_chain'][0] - recv:.4f} ms")
@@ -1179,7 +1197,9 @@ def phase_solve_timing(dev) -> tuple[dict, dict]:
 
 # operations per frame or stream, from the shapes: an f32 or 32-bit integer
 # operation counts 1, a complex multiply-add 8, a log, sqrt, sin or cos 1
-DFT_OPS = 16 * 53 * 64 * 8   # the chain's 16 DFTs of 53 bins from 64 samples
+DFT_OPS = 16 * 53 * 64 * 8   # the chain's 16 DFTs of 53 bins from 64 samples (bf16
+                             # operands on the tensor cores)
+TX_DFT_OPS = 5 * 53 * 64 * 8  # per-frame tx: its preamble and blocks 0..3
 CHAIN_OPS = 29_000           # the rest of the chain: equalizer 15·53·19, the five
                              # interpolators 53·4·24, MMSE 4·53·17 + 53·32, LT-LS, checksum
 EVM_OPS = 15 * 53 * 4
@@ -1205,12 +1225,19 @@ def gen_ops(b: int, n_taps: int) -> float:
 
 
 def raw_gen_ops(b: int, n_taps: int, n_det: int) -> float:
-    """gen_raw_system: the channel, 16 IDFTs of 64 samples from 53 bins,
-    a noise pair per row, then detection and the chain with EVM sums."""
+    """gen_raw_system but for the chain's DFTs: the channel, 16 IDFTs of 64
+    samples from 53 bins (f64), a noise pair per row, then detection and the
+    chain with EVM sums."""
     calls, pairs = n_taps + 1 + NS, n_taps + NS
     per = (calls * PHILOX_OPS + pairs * PAIR_OPS + 53 * n_taps * 8 + 16 * 53 * 6
-           + 16 * 64 * 53 * 8 + NS * 4 + DFT_OPS + CHAIN_OPS + EVM_OPS)
+           + 16 * 64 * 53 * 8 + NS * 4 + CHAIN_OPS + EVM_OPS)
     return b * per + detect_ops(b, n_det)
+
+
+def raw_gen_bound_of(b: int, n_taps: int, n_det: int, n_bytes: int) -> tuple[float, str]:
+    """gen_raw_system's bound; its chain reads the field as bf16, so its
+    DFTs count at the tensor cores' rate."""
+    return bound(raw_gen_ops(b, n_taps, n_det), n_bytes, b * DFT_OPS)
 
 
 def nbytes(*xs) -> int:
@@ -1226,11 +1253,13 @@ def nbytes(*xs) -> int:
     return n
 
 
-def bound(ops: float, n_bytes: int) -> tuple[float, str]:
+def bound(ops: float, n_bytes: int, tc_ops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take, ms, and what sets it: each input
-    read and each output written once at the HBM rate, or the operations at
-    the f32 rate."""
-    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    read and each output written once at the HBM rate, or the operations:
+    ``ops`` at the f32 rate and ``tc_ops`` (the DFTs' bf16 products) at the
+    tensor cores' bf16 rate."""
+    t_ops = (ops / F32_OPS_PER_S + tc_ops / BF16_TC_OPS_PER_S) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1249,14 +1278,15 @@ def bounds(main_in, raw_in, gen_in, dev) -> dict:
                                      equalize_with="h_mmse")
     n_taps = G.channel_consts(dev).tscale.shape[0]
     return {
-        "fused_chain": bound(b_main * (DFT_OPS + CHAIN_OPS), nbytes(pk, lp, txm, consts, chain_out)),
+        "fused_chain": bound(b_main * CHAIN_OPS, nbytes(pk, lp, txm, consts, chain_out),
+                             b_main * DFT_OPS),
         "detect": bound(detect_ops(b_raw, n_det), nbytes(x, lts, det)),
         "place": bound(2 * sig.re.numel(), nbytes(sig, noise, offs, x)),
-        "raw_chain": bound(detect_ops(b_raw, n_det) + b_raw * (DFT_OPS + CHAIN_OPS + EVM_OPS),
-                           nbytes(x, lts, txc, raw_out)),
+        "raw_chain": bound(detect_ops(b_raw, n_det) + b_raw * (CHAIN_OPS + EVM_OPS),
+                           nbytes(x, lts, txc, raw_out), b_raw * DFT_OPS),
         "gen_chain": bound(gen_ops(B_GEN, n_taps), nbytes(txc, st)),
-        "raw_gen_chain": bound(raw_gen_ops(B_GEN, n_taps, int(raw["detected"].sum())),
-                               nbytes(txc, lts, raw)),
+        "raw_gen_chain": raw_gen_bound_of(B_GEN, n_taps, int(raw["detected"].sum()),
+                                          nbytes(txc, lts, raw)),
     }
 
 

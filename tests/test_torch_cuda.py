@@ -121,6 +121,134 @@ def test_batch_major_entry_matches_plain(frames, dev):
     assert_matches(lane, want, B, TOL["f32"])
 
 
+def _chain_inputs(frames, b: int, mode: str, dev, dtype: str = "bf16"):
+    """The first b of test_kernel_matches_plain's frames on the card: (rx
+    packet, rx preamble, tx, keyword arguments) for tx-constant (``mode``
+    "txconst") or per-frame tx; int8 samples are ADC words with their step
+    (``lsb``)."""
+    tx_pkt, rx_pkt, tx_lp, rx_lp = (x[:b] for x in frames[mode == "txconst"])
+    rp, rl = _on(rx_pkt, STORAGE[dtype], dev), _on(rx_lp, STORAGE[dtype], dev)
+    kw = {}
+    if dtype == "int8":
+        rp, lsb = F.quantize_i8(rp)
+        rl, _ = F.quantize_i8(rl, lsb)
+        kw["lsb"] = float(lsb)
+    if mode == "txconst":
+        tx = F.tx_spectra(_on(tx_pkt[:1], torch.float32, dev).map(lambda t: t[:, 0]),
+                          _on(tx_lp[:1], torch.float32, dev).map(lambda t: t[:, 0]))
+    else:
+        tx = F.TxFrames(_on(tx_pkt, STORAGE[dtype], dev), _on(tx_lp, STORAGE[dtype], dev))
+    return rp, rl, tx, kw
+
+
+RING_CASES = {
+    "txconst-bf16": dict(mode="txconst"),
+    "per-frame-bf16": dict(mode="frames"),
+    "txconst-int8": dict(mode="txconst", dtype="int8"),
+    "txconst-bf16-sync": dict(mode="txconst", sync=True),
+    "txconst-int8-sync-evm": dict(mode="txconst", dtype="int8", sync=True, evm_sums=True),
+    "per-frame-bf16-sync-evm": dict(mode="frames", sync=True, evm_sums=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RING_CASES))
+@pytest.mark.parametrize("b", [32, 33, 48, 1000])
+def test_chain_window_ring_at_ragged_batches(b, case, frames, dev):
+    """The windows' staging in runs of 8 frames (cp.async for bf16 without
+    sync, through registers for int8 and with sync) at B = 32 (one whole
+    block), 48 (a last block of 16 frames) and 1,000 (of 8), and by each
+    thread at B = 33 (not a multiple of 8), on test_kernel_matches_plain's
+    frames: the plain version's outputs at its tolerances.  (On frames with
+    deeper fades the checksum moves by more than 1e-4 between any two f32
+    summation orders: reversing the plain DFT's own order does.)"""
+    kw = dict(RING_CASES[case])
+    mode, dtype = kw.pop("mode"), kw.pop("dtype", "bf16")
+    rp, rl, tx, extra = _chain_inputs(frames, b, mode, dev, dtype)
+    kw.update(extra)
+    consts = F.chain_consts(dev)
+    for eq in ("h_linear", "h_mmse"):
+        got = F.fused_chain(rp, rl, tx, consts, equalize_with=eq, **kw)
+        torch.cuda.synchronize()
+        assert_matches(got, F.fused_chain_plain(rp, rl, tx, consts, equalize_with=eq, **kw), b,
+                       TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["txconst", "frames"])
+def test_chain_spectra_formed_twice_give_the_same_bits(mode, frames, dev):
+    """Blocks 0..3 are transformed for the estimators and again for the
+    equalizer: two launches on the same frames give the same bits in every
+    output, and a ragged batch's frames equal the whole batch's."""
+    rp, rl, tx, _ = _chain_inputs(frames, B, mode, dev)
+    consts = F.chain_consts(dev)
+    one, two = (F.fused_chain(rp, rl, tx, consts, evm_sums=True) for _ in range(2))
+
+    def cut(c: Cplx) -> Cplx:
+        return c.map(lambda t: t[:, :40].contiguous())
+
+    part = F.fused_chain(cut(rp), cut(rl), tx if mode == "txconst" else F.TxFrames(
+        cut(tx.pkt), cut(tx.lp)), consts, evm_sums=True)
+    torch.cuda.synchronize()
+    for k, v in one.items():
+        pairs = zip(v, two[k]) if isinstance(v, Cplx) else [(v, two[k])]
+        for x, y in pairs:
+            assert torch.equal(x, y), k
+    for x, y in zip(one["eq"], part["eq"]):
+        assert torch.equal(x[..., :40], y)
+
+
+@pytest.mark.cuda
+def test_chain_kernel_occupancy(dev):
+    """The main path's kernel (bf16, tx-constant, the cp.async ring) spills
+    nothing and keeps two blocks of 32 frames on an SM; its per-frame-tx
+    twin keeps two as well; every other instantiation keeps at least one."""
+    at = F.kernel_attributes(torch.bfloat16, tx_const=True)
+    assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 2, at
+    at = F.kernel_attributes(torch.bfloat16, tx_const=False)
+    assert at["blocks_per_sm"] >= 2, at
+    for storage in (torch.float32, torch.bfloat16, torch.int8):
+        for tx_const in (True, False) if storage != torch.int8 else (True,):
+            for sync in (False, True):
+                for evm in (False, True):
+                    for aligned in (False, True):
+                        at = F.kernel_attributes(storage, tx_const, sync, evm, aligned)
+                        assert at["blocks_per_sm"] >= 1, (storage, tx_const, sync, evm, aligned, at)
+
+
+def _sass_by_kernel(lib: str) -> dict:
+    """cuobjdump -sass of a built library: each fused_chain_kernel
+    instantiation's mangled name → its SASS text."""
+    import pathlib
+    import subprocess
+
+    from tpu80211_torch.kernels import _build
+    tool = pathlib.Path(_build.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    parts = text.split("Function : ")[1:]
+    return {p.split()[0]: p for p in parts if "fused_chain_kernel" in p.split()[0]}
+
+
+@pytest.mark.cuda
+def test_chain_dft_runs_on_the_tensor_cores(dev):
+    """The bf16 and int8 instantiations of the chain issue HMMA (bf16
+    mma.sync); the f32 ones do not (their DFT stays on the CUDA cores)."""
+    from tpu80211_torch.kernels import _build
+    sass = _sass_by_kernel(str(_build.build(_build.CSRC / "fused_chain.cu")))
+    by_type = {"bf16": [k for k in sass if "__nv_bfloat16" in k],
+               "int8": [k for k in sass if "fused_chain_kernelIaL" in k],
+               "f32": [k for k in sass if "fused_chain_kernelIfL" in k]}
+    # bf16: 2 modes x sync x evm_sums x (runs of 8 frames or not); int8: tx-constant
+    # only; f32: no runs
+    assert len(by_type["bf16"]) == 16 and len(by_type["int8"]) == 8 and len(by_type["f32"]) == 8, \
+        {k: len(v) for k, v in by_type.items()}
+    for name in by_type["bf16"] + by_type["int8"]:
+        assert "HMMA" in sass[name], name
+    for name in by_type["f32"]:
+        assert "HMMA" not in sass[name], name
+
+
 # -- detection, alignment, placement and the raw receiver -----------------------------
 
 

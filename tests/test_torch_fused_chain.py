@@ -16,6 +16,7 @@ import torch
 import jax.numpy as jnp
 
 from tpu80211.kernels import fused_chain as JF
+from tpu80211_torch import constants as C
 from tpu80211_torch import convert
 from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.kernels import fused_chain as TF
@@ -259,3 +260,59 @@ def test_rejects_bad_inputs(port_in, bad):
         tx, err = TF.TxFrames(tx_pkt.map(lambda t: t.to(torch.bfloat16)), tx_lp), ValueError
     with pytest.raises(err):
         TF.fused_chain(rx_pkt, rx_lp, tx, consts, **kw)
+
+
+# -- the DFT as the kernel forms it on the tensor cores ----------------------------
+
+
+@pytest.mark.parametrize("bf16_ops", [False, True])
+def test_dft_twiddles_pad_with_zero_bins(bf16_ops):
+    """The twiddles the kernel multiplies: Wᵀ rounded to the operand type
+    (bf16 with bf16 or int8 samples), the 53 bins padded to 64 with zeros."""
+    consts = TF.chain_consts("cpu")
+    wr, wi = TF.dft_twiddles(consts, bf16_ops)
+    for got, w in ((wr, consts.wre), (wi, consts.wim)):
+        assert got.shape == (64, 64) and got.dtype == torch.float32
+        assert not got[53:].any()
+        want = w.to(torch.bfloat16).to(torch.float32) if bf16_ops else w
+        assert torch.equal(got[:53], want.T)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_block_dft_matches_the_jax_kernels(dtype):
+    """The kernel's DFT algebra — two K = 64 products on operands rounded to
+    the operand type, summed apart, then subtracted or added, the padding
+    bins dropped — against the JAX kernel's in interpret mode, read through
+    h_lt under a unit tx preamble spectrum (there h_lt is the spectrum of
+    the rx LTS average, DC zeroed), against f64 sums of the same operands,
+    and through the plain chain: all within f32 summation order (1e-6)."""
+    jdt, tdt = DTYPES[dtype]
+    b = 128  # one of the JAX kernel's lane tiles
+    rng = np.random.default_rng(17)
+    rx_lp = rng.standard_normal((160, b)) + 1j * rng.standard_normal((160, b))
+    rx_pkt = rng.standard_normal((1200, b)) + 1j * rng.standard_normal((1200, b))
+    ones = np.ones((53, 16), np.complex64)
+    want = JF.fused_rx_chain_txconst(jax_planes(ones), jax_planes(ones[:, :1]),
+                                     jax_planes(rx_pkt, jdt), jax_planes(rx_lp, jdt))["h_lt"]
+    want = np.asarray(want.re, np.float64) + 1j * np.asarray(want.im, np.float64)
+
+    lp = torch_planes(rx_lp, tdt).map(lambda t: t.to(torch.float32))
+    avg = [(x[32:96] + x[96:160]) * 0.5 for x in lp]
+    if dtype == "bf16":
+        avg = [x.to(torch.bfloat16).to(torch.float32) for x in avg]
+    wr, wi = TF.dft_twiddles(TF.chain_consts("cpu"), dtype == "bf16")
+    yr, yi = TF.block_dft(wr, wi, *avg)
+    got = to_np(Cplx(yr, yi))
+    got[C.DC_IDX] = 0
+    assert rel(got, want) < 1e-6
+
+    w64 = (wr.double() + 1j * wi.double()).numpy()[:53]
+    ref = w64 @ (avg[0].double() + 1j * avg[1].double()).numpy()
+    ref[C.DC_IDX] = 0
+    assert rel(got, ref) < 1e-6
+
+    unit = Cplx(torch.ones(53, 16), torch.zeros(53, 16))
+    plain = TF.fused_chain_plain(torch_planes(rx_pkt, tdt), torch_planes(rx_lp, tdt),
+                                 TF.TxConst(unit, unit.map(lambda t: t[:, :1].contiguous())),
+                                 TF.chain_consts("cpu"))
+    assert rel(to_np(plain["h_lt"]), got) < 1e-6

@@ -6,13 +6,17 @@ import pytest
 
 from tpu80211_torch.kernels import _build, _variants
 from tpu80211_torch.kernels import detect_variants as DV
+from tpu80211_torch.kernels import fused_chain_variants as FV
 from tpu80211_torch.kernels import raw_gen_chain_variants as V
 
 CASES = ([(V.SOURCE, name, edits) for name, edits in V.DIAGNOSTICS.items()]
          + [(V.PLACE_SOURCE, name, edits) for name, edits in V.PLACE_DIAGNOSTICS.items()]
          + [(_build.CSRC / DV.HEADER, name, edits) for name, edits in DV.DIAGNOSTICS.items()]
          + [(DV.SOURCES["raw_chain"], name, edits)
-            for name, edits in DV.CHAIN_DIAGNOSTICS.items()])
+            for name, edits in DV.CHAIN_DIAGNOSTICS.items()]
+         + [(_build.CSRC / FV.HEADER, "chain-" + name, edits)
+            for name, edits in FV.DIAGNOSTICS.items()]
+         + [(FV.SOURCE, "chain-" + name, edits) for name, edits in FV.SOURCE_DIAGNOSTICS.items()])
 
 
 @pytest.mark.parametrize("source, name, edits", CASES, ids=[c[1] for c in CASES])
@@ -66,3 +70,10 @@ def test_detect_probe_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(DV.torch.cuda, "is_available", lambda: False)
     assert DV.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_chain_probe_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(FV.torch.cuda, "is_available", lambda: False)
+    assert FV.main(["--parent", "elsewhere"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+

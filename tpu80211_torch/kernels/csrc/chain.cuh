@@ -8,25 +8,53 @@
 // tx-constant or per-frame tx (the template flag TX_CONST), eps/lsb load
 // scaling, serve (null h pointers are not written), equalize_with, and the
 // template flags SYNC (Moose CFO + derotation + pilot CPE) and EVM
-// (evm_sums): compiled apart, so the plain chain keeps its registers.  Two kernels run it:
-// fused_chain.cu reads packets and preambles from their own (rows, B)
-// buffers (row base 0); raw_chain.cu reads both from the raw (NS, B)
-// stream at each stream's detected start.  Every (rows, B) buffer is
+// (evm_sums): compiled apart, so the plain chain keeps its registers.
+// Three kernels run it: fused_chain.cu reads packets and preambles from
+// their own (rows, B) buffers (row base 0); raw_chain.cu and
+// raw_gen_chain.cu read both from the raw (NS, B) stream at each stream's
+// detected start.  Every (rows, B) buffer is
 // lane-major with row stride B, so a warp's load of one row is 32
 // neighbouring frames when the row bases agree.
 //
 // Layout of a block: 256 threads = 32 frames (the lane) x 8 bin groups
 // (the warp); group g owns bins k = g, g+8, ... (at most 7).  Each 64-sample
-// window is staged in shared memory for the block's 32 frames, and every
-// thread forms the DFT of its own bins; per-frame sums over bins (sigma^2,
-// the MMSE dots, the CFO correlation, the CPE, the EVM, the checksum) cross
-// the groups through shared memory.  A dead lane (frame >= B) computes on
-// zeros and never stores.
+// window is staged in shared memory for the block's 32 frames and
+// transformed; every thread then reads the spectrum at its own bins.
+// Per-frame sums over bins (sigma^2, the MMSE dots, the CFO correlation,
+// the CPE, the EVM, the checksum) cross the groups through shared memory.
+// A dead lane (frame >= B) computes on zeros and never stores.
 //
-// Rounding points follow the TPU kernel: with bf16 (or int8, exact in bf16)
-// storage the DFT operands are bf16 -- the twiddles, the LTS average formed
-// in f32, and with sync each block's samples after their f32 derotation --
-// and the products accumulate in f32 (bf16 x bf16 is exact in f32).
+// The windows, in order: the LTS average, blocks 0..3 (pilot ratios and the
+// MMSE dots), then blocks 0..14 (the equalizer).  Blocks 0..3 are
+// transformed twice, from the same operands in the same order, so both
+// passes see the same spectra bit for bit and no register keeps them.
+//
+// The DFT.  With bf16 (or int8, exact in bf16) storage the operands are
+// bf16, as the TPU kernel feeds its MXU: the twiddles, the samples, the LTS
+// average formed in f32, and with sync each block's samples after their
+// f32 derotation.  The block multiplies them on the tensor cores (mma.sync
+// m16n8k16, bf16 x bf16 exact, f32 sums): Y = W^T X for the 53 bins
+// (padded to 64 with zero twiddles) and the block's 32 frames (64 columns
+// when a per-frame tx window rides beside the rx one).  As in the TPU
+// kernel, yr = Wr^T xr - Wi^T xi and yi = Wr^T xi + Wi^T xr are each two
+// separately accumulated K = 64 products, subtracted or added in f32.
+// Warp w computes plane w / 4 (re, im) of bins 16 (w % 4) .. +15: 32
+// MMAs a warp per 32 columns, operands read with ldmatrix from a
+// swizzled bf16 twiddle image and from the staged window, the result
+// written to shared memory as f32 Y[plane][bin][column].  With f32
+// storage the operands stay f32 and each thread forms its own bins on the
+// CUDA cores (dft_bins).
+//
+// Staging.  Each window goes into one of two buffers while the block
+// computes on the other.  In fused_chain.cu every lane's rows share their
+// base, and where B is a multiple of 8 and the packet planes are 16-byte
+// aligned (the template flag SHARED_ROWS) the block moves each window in
+// runs of 8 frames: bf16 samples without sync by cp.async, straight into
+// the buffer; int8 samples, and bf16 ones to be derotated, through
+// registers (a thread loads its runs before the current window's product,
+// and converts, derotates and stores them after the epilogue).  Where the
+// rows differ per lane (raw_chain.cu, raw_gen_chain.cu) or B is ragged,
+// each thread loads its own rows n = g + 8r of its frame in the same places.
 // scale = (1+eps)*lsb multiplies the rx preamble before the CFO estimate
 // and the rx block spectra after the DFT; the tx side is scaled only in
 // per-frame-tx mode and is never derotated.
@@ -72,6 +100,10 @@ constexpr int FRAMES = 32;         // frames per block, one per lane
 constexpr int GROUPS = 8;          // bin groups, one per warp
 constexpr int THREADS = FRAMES * GROUPS;
 constexpr int BINS = (N_SC + GROUPS - 1) / GROUPS;  // bins per thread, <= 7
+constexpr int ROWS = N_FFT / GROUPS;                 // window rows a thread stages
+constexpr int N_WINDOWS = N_AVG + N_BLOCKS;          // packet windows: blocks 0..3, then 0..14
+constexpr int BIN_TILE = 16;                         // bins of a warp's product tile
+constexpr int Y_BINS = 56;                           // rows of Y kept: bins 0..52 and padding
 
 // h planes in output order; the pointer tables pass re, im for each
 enum { H_LT, H_LINEAR, H_CUBIC, H_SINC, H_SPLINE, H_WIENER, H_MMSE, N_H };
@@ -116,18 +148,58 @@ inline void set_outputs(Params& p, const void* const* out) {
   p.evm = static_cast<float*>(const_cast<void*>(out[2 * N_H + 5]));
 }
 
-struct Smem {
-  float2 w[N_FFT][N_SC];                 // twiddles, rounded to the operand type
+// tx-constant block and preamble spectra (tx-constant mode only)
+struct TxSpectra {
+  float2 txs[N_BLOCKS][N_SC];
+  float2 tpre[N_SC];
+};
+struct NoTxSpectra {};
+
+// What every layout holds: interpolators, tx spectra, and the sums across
+// bin groups.
+template <bool TX_CONST>
+struct SmemCommon {
   float2 wi[N_KINDS][N_SC][N_PILOTS];    // interpolator weights
-  float2 txs[N_BLOCKS][N_SC];            // tx-constant block spectra
-  float2 tpre[N_SC];                     // tx-constant preamble spectrum
-  float2 xr[N_FFT][FRAMES];              // staged rx window
-  float2 xt[N_FFT][FRAMES];              // staged tx window (per-frame tx)
+  typename std::conditional<TX_CONST, TxSpectra, NoTxSpectra>::type tx;
   float2 hp[N_AVG][N_PILOTS][FRAMES];    // pilot ratios
   float2 cpe[2][N_PILOTS][FRAMES];       // pilot CPE terms, double-buffered
-  double cred[GROUPS][2][FRAMES];        // Moose correlation partial sums
   float red[GROUPS][3 * N_AVG][FRAMES];  // partial sums across bin groups
+  float cfo[FRAMES];                     // each frame's CFO estimate (sync)
 };
+
+template <bool MMA, bool TX_CONST>
+struct Smem;
+
+// f32 operands, the CUDA-core DFT: f32 twiddles and one f32 window
+template <bool TX_CONST>
+struct Smem<false, TX_CONST> : SmemCommon<TX_CONST> {
+  float2 w[N_FFT][N_SC];                 // twiddles
+  float2 xr[N_FFT][FRAMES];              // staged rx window
+  float2 xt[N_FFT][FRAMES];              // staged tx window (per-frame tx)
+  double cred[GROUPS][2][FRAMES];        // Moose correlation partial sums
+};
+
+// bf16 operands, the tensor-core DFT.  Rows are padded by 16 bytes so that
+// the 8 rows an ldmatrix reads, and the 4 rows a half-warp's stores of Y
+// write, fall on distinct banks.
+template <bool TX_CONST>
+struct Smem<true, TX_CONST> : SmemCommon<TX_CONST> {
+  static constexpr int COLS = TX_CONST ? FRAMES : 2 * FRAMES;  // rx, then tx
+  static constexpr int WROW = COLS + 8;  // bf16 per window row
+  static constexpr int YROW = COLS + 8;  // f32 per row of Y
+  // W^T as bf16, [plane][bin][sample], bins 53..63 zero; the 16-byte chunk c
+  // of bin m's row sits at c ^ (m & 7)
+  alignas(16) __nv_bfloat16 tw[2][N_FFT][N_FFT];
+  alignas(16) __nv_bfloat16 win[2][2][N_FFT][WROW];  // [buffer][plane][sample][column]
+  union {
+    float y[2][Y_BINS][YROW];            // the spectra, [plane][bin][column]
+    double cred[GROUPS][2][FRAMES];      // Moose partial sums, before the first product
+  };
+};
+
+// the layout that run<T, TX_CONST, ...> takes
+template <typename T, bool TX_CONST>
+using SmemFor = Smem<!std::is_same<T, float>::value, TX_CONST>;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -162,32 +234,125 @@ __device__ __forceinline__ float2 derotate(float2 v, float cfo, int t) {
                      __fadd_rn(__fmul_rn(v.x, sn), __fmul_rn(v.y, cs)));
 }
 
-// Stage rows row0..row0+63 of a plane pair (row stride batch, this lane's
-// rows from ``base``) for the block's frames, rounded to the operand type;
-// with ``derot`` each sample is first derotated at t = t0 + n.
-template <typename T, bool BF16_OPS>
-__device__ __forceinline__ void stage(float2* x, const void* re, const void* im,
-                                      long long base, long long row0, long long batch,
-                                      long long f, bool live, int g, int lane,
-                                      bool derot, float cfo, int t0) {
-  const T* pr = static_cast<const T*>(re);
-  const T* pi = static_cast<const T*>(im);
-  for (int n = g; n < N_FFT; n += GROUPS) {
-    float2 v = make_float2(0.f, 0.f);
-    if (live) {
-      const long long idx = (base + row0 + n) * batch + f;
-      v = make_float2(to_f32(pr[idx]), to_f32(pi[idx]));
+// sample k of a run of 8 bf16 (uint4) or int8 (uint2) samples, as f32
+template <typename T, typename Run>
+__device__ __forceinline__ float run_element(const Run& v, int k) {
+  const uint32_t w = (&v.x)[k * sizeof(T) / 4];
+  if constexpr (sizeof(T) == 1) return static_cast<float>(static_cast<int8_t>(w >> (8 * (k % 4))));
+  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(w >> (16 * (k % 2)))));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+// -- the tensor cores' operands and products (PTX, sm_80 and later) ----------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 matrices; thread t gives the address of row t % 8 of matrix t / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row-major) . b (16x8, column-major), bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from device memory into shared memory, the bytes past
+// ``src_bytes`` zero-filled (none read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Y[plane][bin][col0 + 0..31] = W^T X for the window x ([plane][sample][WROW]
+// bf16): warp ``warp`` computes plane warp / 4 of bins 16 (warp % 4) .. +15,
+// as two K = 64 products (Wr^T x_p and Wi^T x_(1-p)) accumulated apart and
+// then subtracted (re) or added (im).
+template <int WROW, int YROW>
+__device__ __forceinline__ void mma_dft(const __nv_bfloat16 (*tw)[N_FFT][N_FFT],
+                                        const __nv_bfloat16* x, float* y, int col0, int warp,
+                                        int lane) {
+  const int plane = warp >> 2;
+  const int m0 = BIN_TILE * (warp & 3);
+  const int sub = (lane >> 3) & 1;  // ldmatrix: rows 8..15 of the tile
+  const int hi = lane >> 4;         // ldmatrix: the second k chunk, or the second n tile
+  float acc1[4][4], acc2[4][4];     // [n tile][fragment]: Wr^T x_p, Wi^T x_(1-p)
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[nt][e] = acc2[nt][e] = 0.f;
+  const int m = m0 + 8 * sub + (lane & 7);
+  const __nv_bfloat16* xa = x + plane * (N_FFT * WROW);        // x_p
+  const __nv_bfloat16* xb = x + (1 - plane) * (N_FFT * WROW);  // x_(1-p)
+#pragma unroll
+  for (int kk = 0; kk < N_FFT / 16; ++kk) {
+    uint32_t wr[4], wi[4];
+    const int chunk = (2 * kk + hi) ^ (m & 7);
+    ldsm_x4(wr, &tw[0][m][8 * chunk]);
+    ldsm_x4(wi, &tw[1][m][8 * chunk]);
+    const int k = 16 * kk + 8 * sub + (lane & 7);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      const int n = col0 + 8 * (2 * np + hi);
+      uint32_t ba[4], bb[4];
+      ldsm_x4_trans(ba, xa + k * WROW + n);
+      ldsm_x4_trans(bb, xb + k * WROW + n);
+      mma_bf16(acc1[2 * np], wr, ba[0], ba[1]);
+      mma_bf16(acc1[2 * np + 1], wr, ba[2], ba[3]);
+      mma_bf16(acc2[2 * np], wi, bb[0], bb[1]);
+      mma_bf16(acc2[2 * np + 1], wi, bb[2], bb[3]);
     }
-    if (derot) v = derotate(v, cfo, t0 + n);
-    x[n * FRAMES + lane] = make_float2(op<BF16_OPS>(v.x), op<BF16_OPS>(v.y));
+  }
+  const int r = m0 + (lane >> 2);
+  float* yp = y + plane * (Y_BINS * YROW);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = col0 + 8 * nt + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r + 8 * h >= Y_BINS) continue;
+      const float a0 = acc1[nt][2 * h], a1 = acc1[nt][2 * h + 1];
+      const float b0 = acc2[nt][2 * h], b1 = acc2[nt][2 * h + 1];
+      *reinterpret_cast<float2*>(yp + (r + 8 * h) * YROW + c) =
+          plane ? make_float2(a0 + b0, a1 + b1) : make_float2(a0 - b0, a1 - b1);
+    }
   }
 }
 
-// y[j] = sum_n W[n][g + 8j] * x[n] for this thread's bins.  Four real
-// accumulators, as the TPU kernel's four real products: yr = Wr.xr - Wi.xi,
-// yi = Wr.xi + Wi.xr.
-__device__ __forceinline__ void dft_bins(const float2* x, const Smem& s, int g, int lane,
-                                         float out_scale, float2 (&y)[BINS]) {
+// y[j] = sum_n W[n][g + 8j] * x[n] for this thread's bins, on the CUDA cores
+// (f32 operands).  Four real accumulators, as the TPU kernel's four real
+// products: yr = Wr.xr - Wi.xi, yi = Wr.xi + Wi.xr.
+template <bool TX_CONST>
+__device__ __forceinline__ void dft_bins(const float2* x, const Smem<false, TX_CONST>& s, int g,
+                                         int lane, float out_scale, float2 (&y)[BINS]) {
   float rr[BINS], ii[BINS], ri[BINS], ir[BINS];
 #pragma unroll
   for (int j = 0; j < BINS; ++j) rr[j] = ii[j] = ri[j] = ir[j] = 0.f;
@@ -227,20 +392,65 @@ __device__ __forceinline__ int pilot_of(int k) {
 
 // The whole chain for frame f (column f of every buffer) in lane ``lane``
 // of group ``g``.  lp_base, pkt_base: this lane's first row of the rx
-// preamble and packet.  EVM needs p.evm.  Every thread of the block calls
-// it (it holds __syncthreads); a dead lane passes live = false.
-template <typename T, bool TX_CONST, bool SYNC, bool EVM>
-__device__ void run(const Params& p, Smem& s, long long f, bool live, int lane, int g,
-                    long long lp_base, long long pkt_base) {
+// preamble and packet.  EVM needs p.evm.  SHARED_ROWS (bf16 or int8
+// samples): every lane's rows share their base, B is a multiple of 8, and
+// the rx (and per-frame tx) packet planes are 16-byte aligned, so the
+// windows move in runs of 8 frames.  Every thread of the block calls it (it
+// holds __syncthreads); a dead lane passes live = false.
+template <typename T, bool TX_CONST, bool SYNC, bool EVM, bool SHARED_ROWS = false>
+__device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool live, int lane,
+                    int g, long long lp_base, long long pkt_base) {
   constexpr bool BF16_OPS = !std::is_same<T, float>::value;
+  constexpr bool MMA = BF16_OPS;
+  static_assert(!SHARED_ROWS || std::is_same<T, __nv_bfloat16>::value ||
+                    std::is_same<T, int8_t>::value,
+                "runs of 8 bf16 or int8 samples");
+  // bf16 rows copied as they are: cp.async; else through registers
+  constexpr bool ASYNC = SHARED_ROWS && std::is_same<T, __nv_bfloat16>::value && !SYNC;
+  constexpr bool RUN_REGS = SHARED_ROWS && !ASYNC;
   using EqT = typename std::conditional<BF16_OPS, __nv_bfloat16, float>::type;
   const long long batch = p.batch;
   // per-frame tx with CPE or EVM needs the tx spectra of every block
   constexpr bool tx_all = !TX_CONST && (SYNC || EVM);
+  // window i < N_AVG is block i of the estimators' pass, then blocks 0..14
+  auto block_of = [](int i) { return i < N_AVG ? i : i - N_AVG; };
+  auto with_tx = [](int i) { return !TX_CONST && (i < N_AVG || tx_all); };
+
+  // -- the block's first window on its way (ASYNC) ------------------------------
+  auto issue = [&](int i) {  // cp.async of window i into buffer i & 1
+    if constexpr (ASYNC) {
+      const long long row0 = block_of(i) * SAMP_PER_BLOCK + N_CP;
+      const long long f0 = f - lane;  // the block's first frame
+      const int n_copies = (with_tx(i) ? 2 : 1) * 2 * N_FFT * (FRAMES / 8);
+      for (int c = threadIdx.x; c < n_copies; c += THREADS) {
+        const int side = c / (2 * N_FFT * (FRAMES / 8));  // 0 rx, 1 tx
+        const int plane = (c / (N_FFT * (FRAMES / 8))) & 1;
+        const int n = (c / (FRAMES / 8)) % N_FFT;
+        const int part = c % (FRAMES / 8);
+        const void* base = side ? (plane ? p.txa_im : p.txa_re) : (plane ? p.rxp_im : p.rxp_re);
+        const long long fc = f0 + 8 * part;
+        const int bytes = fc < batch ? 16 : 0;  // B is a multiple of 8: all 8 frames or none
+        const long long row = (side ? 0 : pkt_base) + row0 + n;
+        const __nv_bfloat16* src =
+            static_cast<const __nv_bfloat16*>(base) + (bytes ? row * batch + fc : 0);
+        cp_async16(&s.win[i & 1][plane][n][FRAMES * side + 8 * part], src, bytes);
+      }
+      cp_async_commit();
+    }
+  };
+  issue(0);
 
   // -- constants ------------------------------------------------------------
-  for (int i = threadIdx.x; i < N_FFT * N_SC; i += THREADS)
-    (&s.w[0][0])[i] = make_float2(op<BF16_OPS>(p.w_re[i]), op<BF16_OPS>(p.w_im[i]));
+  if constexpr (MMA) {
+    for (int i = threadIdx.x; i < 2 * N_FFT * N_FFT; i += THREADS) {
+      const int plane = i / (N_FFT * N_FFT), n = (i / N_FFT) % N_FFT, m = i % N_FFT;
+      const float w = m < N_SC ? (plane ? p.w_im : p.w_re)[n * N_SC + m] : 0.f;
+      s.tw[plane][m][8 * ((n >> 3) ^ (m & 7)) + (n & 7)] = __float2bfloat16_rn(w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < N_FFT * N_SC; i += THREADS)
+      (&s.w[0][0])[i] = make_float2(p.w_re[i], p.w_im[i]);
+  }
   for (int i = threadIdx.x; i < N_KINDS * N_SC * N_PILOTS; i += THREADS)
     (&s.wi[0][0][0])[i] = make_float2(p.wi_re[i], p.wi_im[i]);
   if constexpr (TX_CONST) {
@@ -248,12 +458,23 @@ __device__ void run(const Params& p, Smem& s, long long f, bool live, int lane, 
     const float* txs_im = static_cast<const float*>(p.txa_im);
     for (int i = threadIdx.x; i < N_BLOCKS * N_SC; i += THREADS) {
       const int b = i / N_SC, k = i % N_SC;
-      s.txs[b][k] = make_float2(txs_re[k * NB_PAD + b], txs_im[k * NB_PAD + b]);
+      s.tx.txs[b][k] = make_float2(txs_re[k * NB_PAD + b], txs_im[k * NB_PAD + b]);
     }
     for (int k = threadIdx.x; k < N_SC; k += THREADS)
-      s.tpre[k] = make_float2(static_cast<const float*>(p.txb_re)[k],
-                              static_cast<const float*>(p.txb_im)[k]);
+      s.tx.tpre[k] = make_float2(static_cast<const float*>(p.txb_re)[k],
+                                 static_cast<const float*>(p.txb_im)[k]);
   }
+
+  // a sample of window column ``col`` (0..31 rx, 32..63 tx) at row n of
+  // buffer ``buf``, rounded to the operand type
+  auto put = [&](int buf, int col, int n, float2 v) {
+    if constexpr (MMA) {
+      s.win[buf][0][n][col] = __float2bfloat16_rn(v.x);
+      s.win[buf][1][n][col] = __float2bfloat16_rn(v.y);
+    } else {
+      (col < FRAMES ? s.xr : s.xt)[n][col % FRAMES] = v;
+    }
+  };
 
   const T* lr = static_cast<const T*>(p.rxl_re);
   const T* li = static_cast<const T*>(p.rxl_im);
@@ -288,9 +509,11 @@ __device__ void run(const Params& p, Smem& s, long long f, bool live, int lane, 
       ci += s.cred[gg][1][lane];
     }
     cfo = static_cast<float>(atan2(ci, cr) / TWO_PI_64);
+    if (g == 0) s.cfo[lane] = cfo;
   }
 
-  // -- preamble: derotate, average the LTS repeats, sigma^2 -------------------
+  // -- preamble: derotate, average the LTS repeats, sigma^2; its window is
+  //    the preamble's buffer (1: buffer 0 takes block 0) ----------------------
   {
     float ow2_part = 0.f;
     for (int n = g; n < N_FFT; n += GROUPS) {
@@ -302,7 +525,8 @@ __device__ void run(const Params& p, Smem& s, long long f, bool live, int lane, 
       }
       const float dr = a.x - b.x, di = a.y - b.y;
       ow2_part += dr * dr + di * di;
-      s.xr[n][lane] = make_float2(op<BF16_OPS>((a.x + b.x) * 0.5f), op<BF16_OPS>((a.y + b.y) * 0.5f));
+      put(1, lane, n,
+          make_float2(op<BF16_OPS>((a.x + b.x) * 0.5f), op<BF16_OPS>((a.y + b.y) * 0.5f)));
       if constexpr (!TX_CONST) {
         const T* tr = static_cast<const T*>(p.txb_re);
         const T* ti = static_cast<const T*>(p.txb_im);
@@ -314,31 +538,188 @@ __device__ void run(const Params& p, Smem& s, long long f, bool live, int lane, 
           dr2 = to_f32(tr[i2]) * p.scale;
           di2 = to_f32(ti[i2]) * p.scale;
         }
-        s.xt[n][lane] = make_float2(op<BF16_OPS>((cr + dr2) * 0.5f), op<BF16_OPS>((ci + di2) * 0.5f));
+        put(1, FRAMES + lane, n,
+            make_float2(op<BF16_OPS>((cr + dr2) * 0.5f), op<BF16_OPS>((ci + di2) * 0.5f)));
       }
     }
     s.red[g][0][lane] = ow2_part;
   }
-  __syncthreads();
+
+  // -- the packet windows through registers: loaded (load), then converted,
+  //    derotated, rounded and stored (put_window).  RUN_REGS: thread t takes
+  //    row t / 4 of both planes, frames 8 (t % 4) .. +7 (a run of 8 samples:
+  //    16 bytes of bf16, 8 of int8), and the tx window's.  Otherwise its
+  //    rows n = g + 8r of its own frame. ---------------------------------------
+  static_assert(THREADS == N_FFT * FRAMES / 8, "one run of each plane a thread");
+  using Run = typename std::conditional<sizeof(T) == 1, uint2, uint4>::type;
+  const int run_row = threadIdx.x / 4, run_col = 8 * (threadIdx.x % 4);
+  Run vq[2], vqt[TX_CONST ? 1 : 2];
+  auto load_runs = [&](int i) {
+    if constexpr (RUN_REGS) {
+      const long long row = block_of(i) * SAMP_PER_BLOCK + N_CP + run_row;
+      const long long fc = f - lane + run_col;
+      auto one = [&](const void* plane, long long r) {  // B is a multiple of 8: all or none
+        const T* src = static_cast<const T*>(plane) + r * batch + fc;
+        return fc < batch ? *reinterpret_cast<const Run*>(src) : Run{};
+      };
+      vq[0] = one(p.rxp_re, pkt_base + row);
+      vq[1] = one(p.rxp_im, pkt_base + row);
+      if constexpr (!TX_CONST) {
+        if (with_tx(i)) {
+          vqt[0] = one(p.txa_re, row);
+          vqt[1] = one(p.txa_im, row);
+        }
+      }
+    }
+  };
+  auto put_runs = [&](int i) {
+    if constexpr (RUN_REGS) {
+      const int t = PREAMBLE + block_of(i) * SAMP_PER_BLOCK + N_CP + run_row;
+      auto put8 = [&](const Run (&v)[2], int col, bool derot) {
+        uint32_t wr[4], wi[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float2 a = make_float2(run_element<T>(v[0], 2 * k), run_element<T>(v[1], 2 * k));
+          float2 b = make_float2(run_element<T>(v[0], 2 * k + 1), run_element<T>(v[1], 2 * k + 1));
+          if (SYNC && derot) {
+            a = derotate(a, s.cfo[run_col + 2 * k], t);
+            b = derotate(b, s.cfo[run_col + 2 * k + 1], t);
+          }
+          wr[k] = pack_bf16(a.x, b.x);
+          wi[k] = pack_bf16(a.y, b.y);
+        }
+        __nv_bfloat16* row = &s.win[i & 1][0][run_row][col + run_col];
+        *reinterpret_cast<uint4*>(row) = make_uint4(wr[0], wr[1], wr[2], wr[3]);
+        *reinterpret_cast<uint4*>(row + N_FFT * Smem<true, TX_CONST>::WROW) =
+            make_uint4(wi[0], wi[1], wi[2], wi[3]);
+      };
+      put8(vq, 0, true);
+      if constexpr (!TX_CONST) {
+        if (with_tx(i)) put8(vqt, FRAMES, false);  // the tx side is never derotated
+      }
+    }
+  };
+  float2 vr[ROWS], vt[TX_CONST ? 1 : ROWS];
+  auto load_rows = [&](int i) {
+    const long long row0 = block_of(i) * SAMP_PER_BLOCK + N_CP;
+    const T* pr = static_cast<const T*>(p.rxp_re);
+    const T* pi = static_cast<const T*>(p.rxp_im);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      vr[r] = make_float2(0.f, 0.f);
+      if (live) {
+        const long long idx = (pkt_base + row0 + g + GROUPS * r) * batch + f;
+        vr[r] = make_float2(to_f32(pr[idx]), to_f32(pi[idx]));
+      }
+    }
+    if constexpr (!TX_CONST) {
+      if (with_tx(i)) {
+        const T* tr = static_cast<const T*>(p.txa_re);
+        const T* ti = static_cast<const T*>(p.txa_im);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          vt[r] = make_float2(0.f, 0.f);
+          if (live) {
+            const long long idx = (row0 + g + GROUPS * r) * batch + f;
+            vt[r] = make_float2(to_f32(tr[idx]), to_f32(ti[idx]));
+          }
+        }
+      }
+    }
+  };
+  auto put_rows = [&](int i) {
+    const int t0 = PREAMBLE + block_of(i) * SAMP_PER_BLOCK + N_CP;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int n = g + GROUPS * r;
+      float2 v = vr[r];
+      if constexpr (SYNC) v = derotate(v, cfo, t0 + n);
+      put(i & 1, lane, n, make_float2(op<BF16_OPS>(v.x), op<BF16_OPS>(v.y)));
+      if constexpr (!TX_CONST) {
+        if (with_tx(i))
+          put(i & 1, FRAMES + lane, n, make_float2(op<BF16_OPS>(vt[r].x), op<BF16_OPS>(vt[r].y)));
+      }
+    }
+  };
+  auto load = [&](int i) {
+    if constexpr (RUN_REGS) load_runs(i); else load_rows(i);
+  };
+  auto put_window = [&](int i) {
+    if constexpr (RUN_REGS) put_runs(i); else put_rows(i);
+  };
+
+  // Window i (-1: the preamble) up to its spectra in shared memory: the
+  // window staged and visible, the next one on its way, the product formed.
+  auto transform = [&](int i) {
+    if constexpr (MMA) {
+      if constexpr (ASYNC) {
+        if (i >= 0) cp_async_wait_all();
+      }
+      __syncthreads();  // window i staged; every reader of the other buffer and of Y done
+      if (i + 1 < N_WINDOWS) {
+        if constexpr (ASYNC) {
+          if (i >= 0) issue(i + 1);
+        } else {
+          load(i + 1);
+        }
+      }
+      const __nv_bfloat16* x = &s.win[i < 0 ? 1 : i & 1][0][0][0];
+      using S = Smem<true, TX_CONST>;
+      mma_dft<S::WROW, S::YROW>(s.tw, x, &s.y[0][0][0], 0, g, lane);
+      if (i < 0 ? !TX_CONST : with_tx(i))
+        mma_dft<S::WROW, S::YROW>(s.tw, x, &s.y[0][0][0], FRAMES, g, lane);
+      __syncthreads();  // Y written
+    } else {
+      __syncthreads();  // the preamble staged, or every reader of the last window done
+      if (i >= 0) {
+        load(i);
+        put_window(i);
+        __syncthreads();
+      }
+    }
+  };
+  // after window i's epilogue: window i + 1 into the other buffer (the
+  // product that last read that buffer ended before window i's)
+  auto finish = [&](int i) {
+    if constexpr (MMA && !ASYNC) {
+      if (i + 1 < N_WINDOWS) put_window(i + 1);
+    }
+  };
+  // this thread's bins of the rx (col 0) or tx (col 32) spectrum of the
+  // window just transformed, times out_scale
+  auto spectrum = [&](int col, float out_scale, float2 (&y)[BINS]) {
+    if constexpr (MMA) {
+#pragma unroll
+      for (int j = 0; j < BINS; ++j) {
+        const int k = g + GROUPS * j;
+        y[j] = make_float2(0.f, 0.f);
+        if (k < N_SC)
+          y[j] = make_float2(s.y[0][k][col + lane] * out_scale, s.y[1][k][col + lane] * out_scale);
+      }
+    } else {
+      dft_bins(col ? &s.xt[0][0] : &s.xr[0][0], s, g, lane, out_scale, y);
+    }
+  };
+
+  // -- LT-LS -------------------------------------------------------------------
+  transform(-1);
   float ow2 = 0.f;
 #pragma unroll
   for (int gg = 0; gg < GROUPS; ++gg) ow2 += s.red[gg][0][lane];
   ow2 = ow2 / (2.f * N_FFT);
-
-  // -- LT-LS -------------------------------------------------------------------
   float2 hlt[BINS];
   float chk = 0.f;  // this thread's share of the checksum (ow2 is added once, at the end)
   {
     float2 rpre[BINS], tpre[BINS];
-    dft_bins(&s.xr[0][0], s, g, lane, 1.f, rpre);
+    spectrum(0, 1.f, rpre);
     if constexpr (TX_CONST) {
 #pragma unroll
       for (int j = 0; j < BINS; ++j) {
         const int k = g + GROUPS * j;
-        tpre[j] = k < N_SC ? s.tpre[k] : make_float2(1.f, 0.f);
+        tpre[j] = k < N_SC ? s.tx.tpre[k] : make_float2(1.f, 0.f);
       }
     } else {
-      dft_bins(&s.xt[0][0], s, g, lane, 1.f, tpre);
+      spectrum(FRAMES, 1.f, tpre);
     }
 #pragma unroll
     for (int j = 0; j < BINS; ++j) {
@@ -355,60 +736,51 @@ __device__ void run(const Params& p, Smem& s, long long f, bool live, int lane, 
       }
     }
   }
+  finish(-1);
 
-  // the tx spectrum of block b at this thread's bins (per-frame tx: its DFT
-  // from the staged window in s.xt)
-  auto tx_block = [&](int b, float2 (&tb)[BINS]) {
+  // the rx and tx spectra of window i at this thread's bins (tx: the
+  // tx-constant spectra, or the per-frame tx window's where it was staged)
+  auto spectra = [&](int i, float2 (&rb)[BINS], float2 (&tb)[BINS]) {
+    spectrum(0, p.scale, rb);
     if constexpr (TX_CONST) {
 #pragma unroll
       for (int j = 0; j < BINS; ++j) {
         const int k = g + GROUPS * j;
-        tb[j] = k < N_SC ? s.txs[b][k] : make_float2(1.f, 0.f);
+        tb[j] = k < N_SC ? s.tx.txs[block_of(i)][k] : make_float2(1.f, 0.f);
       }
+    } else if (with_tx(i)) {
+      spectrum(FRAMES, p.scale, tb);
     } else {
-      dft_bins(&s.xt[0][0], s, g, lane, p.scale, tb);
+#pragma unroll
+      for (int j = 0; j < BINS; ++j) tb[j] = make_float2(0.f, 0.f);
     }
   };
-  auto stage_rx = [&](int b) {
-    const int row0 = b * SAMP_PER_BLOCK + N_CP;
-    stage<T, BF16_OPS>(&s.xr[0][0], p.rxp_re, p.rxp_im, pkt_base, row0, batch, f, live, g,
-                       lane, SYNC, cfo, PREAMBLE + row0);
-  };
-  auto stage_tx = [&](int b) {
-    stage<T, BF16_OPS>(&s.xt[0][0], p.txa_re, p.txa_im, 0, b * SAMP_PER_BLOCK + N_CP, batch, f,
-                       live, g, lane, false, 0.f, 0);
-  };
 
-  // -- blocks 0..3: spectra kept, pilot ratios, MMSE partial dots --------------
-  float2 rkeep[N_AVG][BINS];
-#pragma unroll
+  // -- blocks 0..3: pilot ratios, MMSE partial dots ----------------------------
+#pragma unroll 1
   for (int b = 0; b < N_AVG; ++b) {
-    __syncthreads();  // every reader of the previous window is done
-    stage_rx(b);
-    if constexpr (!TX_CONST) stage_tx(b);
-    __syncthreads();
-    float2 tb[BINS];
-    dft_bins(&s.xr[0][0], s, g, lane, p.scale, rkeep[b]);
-    tx_block(b, tb);
+    transform(b);
+    float2 rb[BINS], tb[BINS];
+    spectra(b, rb, tb);
     float su2 = 0.f, sr = 0.f, si = 0.f;
 #pragma unroll
     for (int j = 0; j < BINS; ++j) {
       const int k = g + GROUPS * j;
       if (k < N_SC) {
-        const float2 rb = rkeep[b][j];
         const int q = pilot_of(k);
-        if (q >= 0) s.hp[b][q][lane] = cdiv(rb, tb[j]);
+        if (q >= 0) s.hp[b][q][lane] = cdiv(rb[j], tb[j]);
         const float2 u = cmul(tb[j], hlt[j]);
         su2 += u.x * u.x + u.y * u.y;
-        sr += u.x * rb.x + u.y * rb.y;  // Re(conj(u) rx)
-        si += u.x * rb.y - u.y * rb.x;  // Im(conj(u) rx)
+        sr += u.x * rb[j].x + u.y * rb[j].y;  // Re(conj(u) rx)
+        si += u.x * rb[j].y - u.y * rb[j].x;  // Im(conj(u) rx)
       }
     }
     s.red[g][3 * b + 0][lane] = su2;
     s.red[g][3 * b + 1][lane] = sr;
     s.red[g][3 * b + 2][lane] = si;
+    finish(b);
   }
-  __syncthreads();
+  __syncthreads();  // every group's pilot ratios and partial dots are in
 
   // -- interpolators: H = W (53x4) . mean_b hp_b; Wiener's W is complex --------
   float2 hps[BINS];  // the PS estimate the equalizer blends in
@@ -484,11 +856,17 @@ __device__ void run(const Params& p, Smem& s, long long f, bool live, int lane, 
   }
 
   // -- equalize: blend h_lt with the PS estimate, divide, DC to zero; then
-  //    the pilot CPE (sync), the EVM sum, the checksum and the store ----------
+  //    the pilot CPE (sync), the EVM sum, the checksum and the store; the
+  //    spectra of blocks 0..3 are formed again ------------------------------
   EqT* eq_re = static_cast<EqT*>(p.eq_re);
   EqT* eq_im = static_cast<EqT*>(p.eq_im);
   float evm = 0.f;
-  auto equalize = [&](int b, const float2 (&rb)[BINS], const float2 (&tb)[BINS]) {
+#pragma unroll 1
+  for (int i = N_AVG; i < N_WINDOWS; ++i) {
+    const int b = block_of(i);
+    transform(i);
+    float2 rb[BINS], tb[BINS];
+    spectra(i, rb, tb);
     const float w_ps = static_cast<float>(b + 1) / N_BLOCKS;
     const float w_lt = static_cast<float>(N_BLOCKS - 1 - b) / N_BLOCKS;
     float2 e[BINS];
@@ -541,27 +919,7 @@ __device__ void run(const Params& p, Smem& s, long long f, bool live, int lane, 
         store(eq_im + idx, e[j].y);
       }
     }
-  };
-#pragma unroll
-  for (int b = 0; b < N_AVG; ++b) {
-    float2 tb[BINS];
-    if constexpr (tx_all) {  // the tx window of block b again, for its full spectrum
-      __syncthreads();
-      stage_tx(b);
-      __syncthreads();
-    }
-    tx_block(b, tb);
-    equalize(b, rkeep[b], tb);
-  }
-  for (int b = N_AVG; b < N_BLOCKS; ++b) {
-    __syncthreads();
-    stage_rx(b);
-    if constexpr (tx_all) stage_tx(b);
-    __syncthreads();
-    float2 rb[BINS], tb[BINS];
-    dft_bins(&s.xr[0][0], s, g, lane, p.scale, rb);
-    if constexpr (TX_CONST || tx_all) tx_block(b, tb);
-    equalize(b, rb, tb);
+    finish(i);
   }
 
   // -- checksum and EVM: summed across groups ----------------------------------

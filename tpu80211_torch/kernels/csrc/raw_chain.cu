@@ -15,11 +15,14 @@
 //
 // What bounds it on this card.  The detection stage (detect.cuh: the f64
 // matched filter over ~2*search + 68 offsets from windows staged in shared
-// memory, the metric scan) and the chain's DFT arithmetic (chain.cuh:
-// ~2.2e5 f32 FMAs per stream).  The chain's loads start at a different row
-// in every lane, so a warp's row load touches up to 32 rows instead of one
-// 64-byte (bf16) span: up to 16x the sectors of the fused chain's loads,
-// served mostly by L1/L2.  Staging them as detection does is later work.
+// memory, the metric scan) and the chain's loads.  The chain's DFTs run on
+// the tensor cores (chain.cuh; bf16 and int8 streams), so its arithmetic no
+// longer bounds it.  Its loads start at a different row in every lane, so a
+// warp's row load touches up to 32 rows instead of one 64-byte (bf16) span:
+// up to 16x the sectors of the fused chain's loads, served mostly by L1/L2.
+// Each thread loads its rows of the next window into registers before the
+// current window's product, so the loads overlap the product and the
+// epilogue; staging the rows as detection does is later work.
 
 #include "chain.cuh"
 #include "detect.cuh"
@@ -55,15 +58,16 @@ __global__ void __launch_bounds__(chain::THREADS, 2) raw_chain_kernel(RawParams 
   }
   // detect::run ends on a barrier: the shared memory is the chain's now
   const long long row0 = detect::frame_row(r, p.det_cfg.ns);
-  chain::run<T, true, SYNC, EVM>(p.chain, *reinterpret_cast<chain::Smem*>(smem_raw), f, live,
-                                 lane, g, row0, row0 + chain::PREAMBLE);
+  chain::run<T, true, SYNC, EVM>(p.chain, *reinterpret_cast<chain::SmemFor<T, true>*>(smem_raw),
+                                 f, live, lane, g, row0, row0 + chain::PREAMBLE);
 }
 
 // the shared memory of a block: one union for detection and the chain
 template <typename T>
 size_t smem_of(int search, int stride, int decimated) {
   const size_t det_smem = detect::smem_bytes<T>(search, stride, decimated);
-  return det_smem > sizeof(chain::Smem) ? det_smem : sizeof(chain::Smem);
+  const size_t chain_smem = sizeof(chain::SmemFor<T, true>);
+  return det_smem > chain_smem ? det_smem : chain_smem;
 }
 
 template <typename T, bool SYNC, bool EVM>

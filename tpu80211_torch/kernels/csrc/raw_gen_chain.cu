@@ -49,13 +49,16 @@
 // those stores took 3.6 of 8.4 ms (PERF.md).  Now: per stream ~2,050
 // Box-Muller pairs and a Philox call each in f64, 16 IDFTs (2.2e5 f64
 // FMAs), the field written once (16 KB) and read by detection, then
-// raw_chain's detection (f64 matched filter on staged windows) and chain (FP32
-// DFTs), which take most of the time.  The field alone is >= 0.16 ms of
-// HBM writes at B = 32,768, NS = 2,048.
+// raw_chain's detection (f64 matched filter on staged windows) and chain (its
+// DFTs on the tensor cores, its rows loaded per lane), which take most of
+// the time.  The field alone is >= 0.16 ms of HBM writes at B = 32,768,
+// NS = 2,048.
 
 #include "chain.cuh"
 #include "detect.cuh"
 #include "gen.cuh"
+
+#include <initializer_list>
 
 namespace gen {
 
@@ -125,8 +128,6 @@ struct FieldSmem {
   int off[FRAMES];
   float eps[FRAMES];
 };
-
-static_assert(sizeof(FieldSmem) <= sizeof(chain::Smem), "the field pass keeps the union's size");
 
 struct RawGenParams {
   detect::Config det_cfg;
@@ -310,7 +311,8 @@ __global__ void __launch_bounds__(THREADS, 2) raw_gen_kernel(RawGenParams p) {
   }
   // detect::run ends on a barrier: the shared memory is the chain's now
   const long long row0 = detect::frame_row(r, p.det_cfg.ns);
-  chain::run<gen::Bf16Sample, true, SYNC, true>(p.chain, *reinterpret_cast<chain::Smem*>(smem_raw),
+  using ChainSmem = chain::SmemFor<gen::Bf16Sample, true>;
+  chain::run<gen::Bf16Sample, true, SYNC, true>(p.chain, *reinterpret_cast<ChainSmem*>(smem_raw),
                                                 f, live, lane, g, row0, row0 + chain::PREAMBLE);
 }
 
@@ -318,8 +320,9 @@ __global__ void __launch_bounds__(THREADS, 2) raw_gen_kernel(RawGenParams p) {
 // the chain
 size_t smem_of(int search, int stride) {
   size_t smem = detect::smem_bytes<float>(search, stride, 1);
-  if (smem < sizeof(chain::Smem)) smem = sizeof(chain::Smem);
-  if (smem < sizeof(SynthSmem)) smem = sizeof(SynthSmem);
+  for (const size_t part : {sizeof(chain::SmemFor<gen::Bf16Sample, true>), sizeof(SynthSmem),
+                            sizeof(FieldSmem)})
+    if (smem < part) smem = part;
   return smem;
 }
 

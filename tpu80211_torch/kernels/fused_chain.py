@@ -2,8 +2,9 @@
 
 The counterpart of ``tpu80211/kernels/fused_chain.py``.  One hand-written
 CUDA kernel (``csrc/fused_chain.cu``) runs the whole chain per frame —
-preamble and block DFTs, σ², LT-LS, four pilot-LS interpolators and the
-Wiener one, the rank-1 MMSE, and the blended equalizer — in tx-constant
+preamble and block DFTs (on the tensor cores for bf16 and int8 samples),
+σ², LT-LS, four pilot-LS interpolators and the Wiener one, the rank-1
+MMSE, and the blended equalizer — in tx-constant
 mode (every frame carries one known packet, passed as precomputed
 spectra) and in per-frame-tx mode.  ``fused_chain_plain`` is the same
 function in plain PyTorch, with the same rounding points; the wrapper
@@ -236,9 +237,10 @@ def raise_on_error(err: int, what: str, err_string) -> None:
                            f"({err_string(err).decode()})")
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    lib = _build.load("fused_chain")
+def bind(lib):
+    """(launch, error string) of a library built from csrc/fused_chain.cu
+    (or from a variant of it), with the ctypes signatures of its functions
+    set."""
     fn = lib.fused_chain_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
@@ -250,11 +252,39 @@ def _kernel_fn():
     return fn, err_string
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    return bind(_build.load("fused_chain"))
+
+
+def kernel_attributes(storage: torch.dtype = torch.bfloat16, tx_const: bool = True,
+                      sync: bool = False, evm_sums: bool = False, aligned: bool = True,
+                      lib=None) -> dict:
+    """The kernel that `fused_chain` launches for samples of ``storage`` in
+    this mode, on the current card, where B is a multiple of 8 and the
+    packet planes are 16-byte aligned (``aligned``: bf16 and int8 windows
+    move in runs of 8 frames, by cp.async for bf16 without sync) or not:
+    registers and local (spill) bytes a thread, shared bytes a block, and
+    resident blocks per SM (32 frames a block).  ``lib``: another build of
+    the source."""
+    lib = lib or _build.load("fused_chain")
+    _, err_string = bind(lib)
+    fn = lib.fused_chain_attributes
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    raise_on_error(fn(_STORAGE[storage], int(tx_const), int(sync), int(evm_sums), int(aligned),
+                      out), "fused_chain", err_string)
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
+
+
 def _launch(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
             consts: ChainConsts, eps: float, lsb: float, serve: bool,
-            equalize_with: str, sync: bool, evm_sums: bool) -> dict:
+            equalize_with: str, sync: bool, evm_sums: bool, kernel=None) -> dict:
+    """One launch; ``kernel`` = `bind` of another build of the source (the
+    card probe's variants), else the package's own."""
     global launches
-    fn, err_string = _kernel_fn()
+    fn, err_string = kernel or _kernel_fn()
     dev = rx_pkt.re.device
     b = rx_pkt.re.shape[-1]
     storage = rx_pkt.re.dtype
@@ -269,6 +299,28 @@ def _launch(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
     raise_on_error(err, "fused_chain", err_string)
     launches += 1
     return out
+
+
+def dft_twiddles(consts: ChainConsts, bf16_ops: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The block DFT as the kernel multiplies it: Wᵀ, (64 bins, 64 samples)
+    float32 per plane, rounded to bf16 where the operands are (``bf16_ops``),
+    and bins 53..63 zero (the tensor cores' tiles of 16 bins pad 53 to 64)."""
+    def plane(w: torch.Tensor) -> torch.Tensor:
+        if bf16_ops:
+            w = w.to(torch.bfloat16).to(torch.float32)
+        return torch.cat([w.T, w.new_zeros(C.N_FFT - C.N_SC, C.N_FFT)])
+
+    return plane(consts.wre), plane(consts.wim)
+
+
+def block_dft(wr: torch.Tensor, wi: torch.Tensor, xr: torch.Tensor, xi: torch.Tensor):
+    """(…, 64, B) operands → (…, 53, B) spectrum with `dft_twiddles`' planes,
+    as the kernel and the TPU kernel form it: yr = Wrᵀ·xr − Wiᵀ·xi and
+    yi = Wrᵀ·xi + Wiᵀ·xr, each two K = 64 products summed apart and then
+    subtracted or added; the padding bins are dropped."""
+    yr = wr @ xr - wi @ xi
+    yi = wr @ xi + wi @ xr
+    return yr[..., :C.N_SC, :], yi[..., :C.N_SC, :]
 
 
 _TWO_PI = 2.0 * math.pi
@@ -309,11 +361,11 @@ def fused_chain_plain(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
     # (1+eps)·lsb in f32, as the kernel forms it
     scale = ((1.0 + torch.as_tensor(eps, dtype=f32, device=dev))
              * torch.as_tensor(lsb, dtype=f32, device=dev))
-    wrT, wiT = ops(consts.wre).T, ops(consts.wim).T  # (53, 64)
+    wr, wi = dft_twiddles(consts, bf16_ops)
 
     def dft(xr, xi):
         """(…, 64, B) operands → (…, 53, B) f32 spectrum."""
-        return wrT @ xr - wiT @ xi, wrT @ xi + wiT @ xr
+        return block_dft(wr, wi, xr, xi)
 
     def preamble_spectrum(r: Cplx):
         """The LTS average of scaled f32 preamble planes, rounded, DFT'd."""
