@@ -43,10 +43,10 @@ nvcc per source, all started together), then:
    gates; a 40 kHz CFO recovered), and ``run_stream_device`` for 4 batches
    with each of the four generators, plus a bit-identical resume;
 8. times ``fused_gen_chain``, ``gen_raw_system`` and one stream step per
-   generator, kernel and plain version in turns; the raw receiver alone on
-   ``gen_raw_system``'s own field (what is left is the synthesis); and the
-   generative raw kernel's registers, spills, shared bytes and blocks per
-   SM;
+   generator, kernel and plain version in turns, each kernel beside its
+   bound; the raw receiver alone on ``gen_raw_system``'s own field (what is
+   left is the synthesis); and both generative kernels' registers, spills,
+   shared bytes and blocks per SM;
 2d. (run after 2c) holds the dense MMSE solve kernels against their plain
    versions at a ragged B=1000 systems of bench.py's dense-solve workload
    (sigma^2 = 0.37, normal u and rx): ``fused_rank1_solve`` and
@@ -974,15 +974,15 @@ def phase_gen_timing(gen_in, dev) -> dict:
     gen_rx = time_ms(lambda: SC.generate_rx_lane_major(seeded(), B_GEN, *txc))
     gen_raw = time_ms(lambda: SC.generate_raw_lane_major(seeded(), B_GEN, *txc, ns=NS))
     torch.cuda.synchronize()
-    raw_gen_bound = raw_gen_bound_of(B_GEN, G.channel_consts(dev).tscale.shape[0],
-                                     int(raw["detected"].sum()), nbytes(txc, lts, raw))
+    lower = gen_bounds(gen_in, dev)
     for name in ("gen_chain", "raw_gen_chain"):
         k_ms, p_ms = t[name]
-        extra = (f"; bound {raw_gen_bound[0]:.4f} ms ({raw_gen_bound[1]})"
-                 if name == "raw_gen_chain" else "")
         print(f"phase 8: {name}: kernel {k_ms:.4f} ms = {B_GEN / k_ms * 1e3:.4g} frames/s; "
-              f"plain {p_ms:.4f} ms{extra}")
+              f"plain {p_ms:.4f} ms; bound {lower[name][0]:.4f} ms ({lower[name][1]})")
     print(f"phase 8: fused_gen_chain with full outputs at B={B_GEN}: {gen_full:.4f} ms")
+    for eq_dtype in (torch.bfloat16, torch.float32):
+        print(f"phase 8: gen_chain kernel (eq {str(eq_dtype).split('.')[-1]}): "
+              f"{occupancy(G.kernel_attributes(eq_dtype))}")
     print(f"phase 8: raw_gen_chain anatomy: the raw receiver alone on its f32 field {recv:.4f} ms "
           f"(detection {det:.4f} ms), so synthesis ~{t['raw_gen_chain'][0] - recv:.4f} ms")
     for sync in (False, True):
@@ -1215,10 +1215,11 @@ def detect_ops(b: int, n_det: int, stride: int = 16, search: int = 192) -> float
 
 def gen_ops(b: int, n_taps: int) -> float:
     """fused_gen_chain: a Philox call per tap, per preamble bin and per
-    block bin; a normal pair per tap, two per preamble bin, one per block
-    bin; the CFR; tx·H and the noise of 16 symbols; the chain without DFTs;
-    the stream sums."""
-    calls, pairs = n_taps + 53 + 15 * 53, n_taps + 2 * 53 + 15 * 53
+    block bin but DC (the equalizer zeroes it, and LT-LS's zero there makes
+    its MMSE terms 0); a normal pair per tap, two per preamble bin, one per
+    block bin but DC; the CFR; tx·H and the noise of 16 symbols; the chain
+    without DFTs; the stream sums."""
+    calls, pairs = n_taps + 53 + 15 * 52, n_taps + 2 * 53 + 15 * 52
     per = (calls * PHILOX_OPS + pairs * PAIR_OPS + 53 * n_taps * 8 + 53 * (16 * 6 + 17 * 4)
            + CHAIN_OPS + 8 * 53 * 4)
     return float(b * per)
@@ -1234,10 +1235,15 @@ def raw_gen_ops(b: int, n_taps: int, n_det: int) -> float:
     return b * per + detect_ops(b, n_det)
 
 
-def raw_gen_bound_of(b: int, n_taps: int, n_det: int, n_bytes: int) -> tuple[float, str]:
-    """gen_raw_system's bound; its chain reads the field as bf16, so its
-    DFTs count at the tensor cores' rate."""
-    return bound(raw_gen_ops(b, n_taps, n_det), n_bytes, b * DFT_OPS)
+def gen_bounds(gen_in, dev) -> dict:
+    """The generative kernels' bounds at phase 8's shapes, from phase 7's
+    inputs and outputs.  gen_raw_system's chain reads the field as bf16, so
+    its DFTs count at the tensor cores' rate."""
+    txc, lts, st, raw = gen_in
+    n_taps = G.channel_consts(dev).tscale.shape[0]
+    return {"gen_chain": bound(gen_ops(B_GEN, n_taps), nbytes(txc, st)),
+            "raw_gen_chain": bound(raw_gen_ops(B_GEN, n_taps, int(raw["detected"].sum())),
+                                   nbytes(txc, lts, raw), B_GEN * DFT_OPS)}
 
 
 def nbytes(*xs) -> int:
@@ -1268,7 +1274,6 @@ def bounds(main_in, raw_in, gen_in, dev) -> dict:
     run's inputs and outputs."""
     pk, lp, txm = main_in
     x, lts, txc, sig, noise, offs = raw_in
-    _, _, st, raw = gen_in
     consts = F.chain_consts(dev)
     b_main, b_raw = pk.re.shape[-1], x.re.shape[-1]
     chain_out = F.fused_chain(pk, lp, txm, consts)
@@ -1276,7 +1281,6 @@ def bounds(main_in, raw_in, gen_in, dev) -> dict:
     n_det = int(det["detected"].sum())
     raw_out = R.raw_rx_txconst_fused(x, lts, *txc, decimate=16, stream_sums=True,
                                      equalize_with="h_mmse")
-    n_taps = G.channel_consts(dev).tscale.shape[0]
     return {
         "fused_chain": bound(b_main * CHAIN_OPS, nbytes(pk, lp, txm, consts, chain_out),
                              b_main * DFT_OPS),
@@ -1284,9 +1288,7 @@ def bounds(main_in, raw_in, gen_in, dev) -> dict:
         "place": bound(2 * sig.re.numel(), nbytes(sig, noise, offs, x)),
         "raw_chain": bound(detect_ops(b_raw, n_det) + b_raw * (CHAIN_OPS + EVM_OPS),
                            nbytes(x, lts, txc, raw_out), b_raw * DFT_OPS),
-        "gen_chain": bound(gen_ops(B_GEN, n_taps), nbytes(txc, st)),
-        "raw_gen_chain": raw_gen_bound_of(B_GEN, n_taps, int(raw["detected"].sum()),
-                                          nbytes(txc, lts, raw)),
+        **gen_bounds(gen_in, dev),
     }
 
 

@@ -19,6 +19,7 @@ from tpu80211_torch.kernels import mmse_solve as M
 from tpu80211_torch.kernels import raw_chain as R
 from tpu80211_torch.kernels import raw_gen_chain as RG
 from tpu80211_torch.models import ps_mmse
+from tpu80211_torch.ops import channel
 from tpu80211_torch.pipeline import raw as P
 from tpu80211_torch.pipeline import rx as RX
 from tpu80211_torch.pipeline import sc as SCH
@@ -587,6 +588,91 @@ def test_gen_kernel_frames_do_not_depend_on_batch(dev):
         for a, b in zip(small[name], big[name]):
             assert torch.equal(a, b[..., :128]), name
     assert torch.equal(small["checksum"], big["checksum"][:128])
+
+
+def _taps_of(n: int, dev) -> G.ChannelConsts:
+    """Channel model E's exponential profile cut to ``n`` taps: warp g of the
+    kernel draws taps l = g, g + 8, ..., so 9 and 15 taps leave warps idle."""
+    wr, wi = G._cfr_mats(n)
+    scale = np.sqrt(channel.pdp("E", n_taps=n) / 2.0).astype(np.float32)
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return G.ChannelConsts(Cplx(t(wr), t(wi)), t(scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_taps", [8, 9, 15, 16])
+def test_gen_kernel_matches_plain_at_tap_counts(n_taps, monkeypatch, dev):
+    """Each tap is drawn once, by warp l mod 8, and summed from shared
+    memory: at full, ragged and single-warp tap counts the channel and
+    every output agree with the plain version as in
+    test_gen_kernel_matches_plain."""
+    consts = _taps_of(n_taps, dev)
+    monkeypatch.setattr(G, "channel_consts", lambda device, model=None: consts)
+    txc = _spectra(dev)
+    kw = dict(channel_model="E", snr_db=25.0)
+    before = G.launches
+    got = G.fused_gen_chain(4, GEN_B, *txc, **kw)
+    torch.cuda.synchronize()
+    assert G.launches == before + 1
+    want = G.gen_chain_plain(4, GEN_B, *txc, **kw)
+    tol = TOL["f32"]
+    for name in (*F.OUT_NAMES, "h_true", "eq"):
+        lim = TOL["bf16"]["eq"] if name == "eq" else tol.get(name, tol["h"])
+        for g, w in zip(got[name], want[name]):
+            assert rel(to_np(g), to_np(w)) < lim, (name, rel(to_np(g), to_np(w)))
+    assert rel(to_np(got["checksum"]), to_np(want["checksum"])) < 1e-4
+
+
+@pytest.mark.cuda
+def test_gen_kernel_frames_do_not_depend_on_batch_at_16_taps(dev):
+    """As test_gen_kernel_frames_do_not_depend_on_batch, with channel model
+    E's 16 taps: two per warp."""
+    txc = _spectra(dev)
+    small = G.fused_gen_chain(9, 128, *txc, channel_model="E")
+    big = G.fused_gen_chain(9, GEN_B, *txc, channel_model="E")
+    for name in (*F.OUT_NAMES, "h_true", "eq"):
+        for a, b in zip(small[name], big[name]):
+            assert torch.equal(a, b[..., :128]), name
+    assert torch.equal(small["checksum"], big["checksum"][:128])
+
+
+@pytest.mark.cuda
+def test_gen_kernel_occupancy(dev):
+    """The bf16 kernel (stream mode's and the main path's) spills nothing
+    and keeps at least two blocks of 32 frames on an SM; so does the f32
+    one."""
+    for eq_dtype in (torch.bfloat16, torch.float32):
+        at = G.kernel_attributes(eq_dtype)
+        assert at["local_bytes"] == 0 and at["blocks_per_sm"] >= 2, (eq_dtype, at)
+
+
+def _ulps(x: torch.Tensor, y: np.ndarray) -> int:
+    """The largest distance in f64 ulps between float64 ``x`` and ``y``."""
+    def ordered(v: np.ndarray) -> np.ndarray:
+        i = v.view(np.int64)
+        return np.where(i < 0, np.iinfo(np.int64).min - i, i)
+    return int(np.abs(ordered(x.cpu().numpy()) - ordered(y.astype(np.float64))).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [0x12345678, 0xC0FFEE00])
+def test_gen_normals_match_plain_on_every_uniform(fixed, dev):
+    """The kernels' Box-Muller takes ln from a table and sin and cos by its
+    own reduction and series.  Over all 2^24 values of u1 (u2's word fixed)
+    and all 2^24 of u2 (u1's word fixed): the radius and the angle's sin
+    and cos are within an f64 ulp of their correct rounding (numpy's
+    extended precision), and the f32 normals are the plain version's bit
+    for bit."""
+    words = (torch.arange(2 ** 24, dtype=torch.int64, device=dev) << 8) | 0x5A
+    other = torch.full_like(words, fixed)
+    for a, b in ((words, other), (other, words)):
+        r, sn, cs, z = G.kernel_normals(a, b)
+        want = G.normal_pair(a, b)
+        assert torch.equal(z.re, want.re) and torch.equal(z.im, want.im)
+        u1 = G.uniform_open(a).cpu().numpy().astype(np.longdouble)
+        th = (G._TWO_PI * G.uniform(b).double()).cpu().numpy().astype(np.longdouble)
+        assert _ulps(r, np.sqrt(-2 * np.log(u1))) <= 1
+        assert _ulps(sn, np.sin(th)) <= 1 and _ulps(cs, np.cos(th)) <= 1
 
 
 RAW_GEN_CASES = {

@@ -9,6 +9,12 @@ Random123 known-answer vectors.  The CUDA kernel is held against
 ``gen_chain_plain`` in test_torch_cuda.py.
 """
 
+import math
+import pathlib
+import re
+import struct
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +27,7 @@ from tpu80211.kernels import gen_chain as JG
 from tpu80211_torch import convert
 from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.kernels import gen_chain as TG
+from tpu80211_torch.kernels import gen_tables as GT
 from tpu80211_torch.ops import channel
 
 from _torch_inputs import TOL, rel, to_np
@@ -70,6 +77,115 @@ def test_normals_are_standard_and_uniforms_24_bit():
     # 524,288 normals: the mean's standard error is 1.4e-3, the variance's 2e-3
     assert abs(float(v.mean())) < 7e-3 and abs(float(v.var()) - 1.0) < 1e-2
     assert abs(float((z.re.double() * z.im.double()).mean())) < 1e-2
+
+
+# -- the kernels' Box-Muller arithmetic (csrc/gen.cuh), emulated exactly -------------------
+
+_GEN_CUH = pathlib.Path(TG.__file__).parent / "csrc" / "gen.cuh"
+
+
+def _const(name: str) -> float:
+    """A ``constexpr double`` of gen.cuh."""
+    return float.fromhex(re.search(rf"constexpr double {name} = (\S+);", _GEN_CUH.read_text())[1])
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """a·b + c rounded once, as the card's fused multiply-add."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _f32_bits(u: float) -> int:
+    return struct.unpack("<I", struct.pack("<f", u))[0]
+
+
+def _ln_uniform(u: float) -> float:
+    """gen::ln_uniform, operation for operation."""
+    bits = _f32_bits(u)
+    m = bits & 0x7FFFFF
+    up = int(m >= 0x400000)
+    y = struct.unpack("<d", struct.pack("<Q", (0x3FF - up) << 52 | m << 29))[0]
+    e = float((bits >> 23) - 127 + up)
+    r, hi, lo = GT.entry(m >> 15)
+    t = _fma(y, float(r), -1.0)
+    p = 1.0 / 7
+    for c in (-1.0 / 6, 1.0 / 5, -1.0 / 4, 1.0 / 3, -1.0 / 2):
+        p = _fma(p, t, c)
+    h = _fma(e, _const("LN2_HI"), hi)
+    tail = _fma(t * t, p, _fma(e, _const("LN2_LO"), float(lo)))
+    s = h + t
+    return s + ((t - (s - h)) + tail)
+
+
+def _sincos_turn(w: int) -> tuple[float, float]:
+    """gen::sincos_turn, operation for operation: (sin, cos)."""
+    n = ((w >> 8) + (1 << 21)) >> 22
+    d = TG._TWO_PI * ((w >> 8) * 2.0 ** -24)
+    for part in ("PIO2_1", "PIO2_2", "PIO2_3"):
+        d = _fma(-float(n), _const(part), d)
+    d2 = d * d
+    ps, pc = 1.0 / math.factorial(17), 1.0 / math.factorial(16)
+    for k in range(15, 1, -2):
+        ps = _fma(ps, d2, (-1) ** ((k - 1) // 2) / math.factorial(k))
+        pc = _fma(pc, d2, (-1) ** ((k - 1) // 2) / math.factorial(k - 1))
+    s, c = _fma(d2 * d, ps, d), _fma(d2, pc, 1.0)
+    return ((s, c), (c, -s), (-s, -c), (-c, s))[n & 3]
+
+
+def _ulps(x: float, y: float) -> int:
+    def ordered(v: float) -> int:
+        i = struct.unpack("<q", struct.pack("<d", v))[0]
+        return -(2 ** 63) - i if i < 0 else i
+    return abs(ordered(x) - ordered(y))
+
+
+def test_ln_table_in_the_header_matches_its_generator():
+    """gen.cuh's LN_TABLE and its ln 2 and pi/2 splits are gen_tables'; R
+    is 1 on the two intervals that touch 1, every |y R - 1| is at most
+    2^-8 (2^-8.9 where R is not 1), and hi lies on the 2^-45 grid."""
+    text = _GEN_CUH.read_text()
+    body = text[text.index("LN_TABLE[LN_ENTRIES] = {"):]
+    body = body[body.index("\n") + 1:body.index("\n};")]
+    assert body == GT.c_table()
+    assert (_const("LN2_HI"), _const("LN2_LO")) == GT.ln2_split()
+    assert tuple(_const(f"PIO2_{i}") for i in (1, 2, 3)) == GT.pio2_split()
+    for i in range(2 ** GT.N_BITS):
+        r, hi, _ = GT.entry(i)
+        lo_y, hi_y = GT.interval(i)
+        t = max(abs(lo_y * float(r) - 1), abs(hi_y * float(r) - 1))
+        assert t <= (2 ** -8 if float(r) == 1.0 else 2 ** -8.9), i
+        assert (hi / GT.QUANTUM).is_integer(), i
+        assert (float(r) == 1.0) == (i in (0, 2 ** GT.N_BITS - 1)), i
+
+
+_EDGES = [0, 1, 2, 2 ** 21 - 1, 2 ** 21, 2 ** 21 + 1, 2 ** 22 - 1, 2 ** 22, 2 ** 22 + 1,
+          3 * 2 ** 21, 2 ** 23 - 1, 2 ** 23, 2 ** 23 + 1, 3 * 2 ** 22, 7 * 2 ** 21,
+          2 ** 24 - 2, 2 ** 24 - 1]
+
+
+@pytest.mark.parametrize("term", ["radius", "angle"])
+def test_kernel_box_muller_within_an_ulp_of_the_plain_version(term):
+    """The kernels take ln from a table and sin and cos by their own
+    reduction and series (csrc/gen.cuh), fused multiply-adds included.
+    Emulated exactly, on 3,000 seeded 24-bit values and the edges (u1 = 1
+    and 2^-25, the quadrants and octants of u2), each term is within an f64
+    ulp of the plain version's (torch's log, sqrt, sin and cos), and the
+    float32 normals are the plain version's bit for bit."""
+    rng = np.random.default_rng(11)
+    m = [*_EDGES, *rng.integers(0, 2 ** 24, 3000).tolist()]
+    words = [(v << 8) | 0xA5 for v in m]
+    fixed = [0x3C6EF372] * len(words)
+    a, b = (words, fixed) if term == "radius" else (fixed, words)
+    ta, tb = torch.tensor(a, dtype=torch.int64), torch.tensor(b, dtype=torch.int64)
+    u1 = TG.uniform_open(ta).double()
+    r_plain = torch.sqrt(-2.0 * torch.log(u1))
+    th = TG._TWO_PI * TG.uniform(tb).double()
+    want = TG.normal_pair(ta, tb)
+    for i in range(len(m)):
+        r = math.sqrt(-2.0 * _ln_uniform(float(u1[i])))
+        sn, cs = _sincos_turn(b[i])
+        assert _ulps(r, float(r_plain[i])) <= 1, (i, m[i])
+        assert _ulps(sn, float(torch.sin(th[i]))) <= 1 and _ulps(cs, float(torch.cos(th[i]))) <= 1, i
+        assert (np.float32(r * cs), np.float32(r * sn)) == (want.re[i].item(), want.im[i].item()), i
 
 
 def test_draws_depend_on_seed_and_frame_only(spectra):

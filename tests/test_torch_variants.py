@@ -7,6 +7,7 @@ import pytest
 from tpu80211_torch.kernels import _build, _variants
 from tpu80211_torch.kernels import detect_variants as DV
 from tpu80211_torch.kernels import fused_chain_variants as FV
+from tpu80211_torch.kernels import gen_chain_variants as GV
 from tpu80211_torch.kernels import raw_gen_chain_variants as V
 
 CASES = ([(V.SOURCE, name, edits) for name, edits in V.DIAGNOSTICS.items()]
@@ -16,7 +17,11 @@ CASES = ([(V.SOURCE, name, edits) for name, edits in V.DIAGNOSTICS.items()]
             for name, edits in DV.CHAIN_DIAGNOSTICS.items()]
          + [(_build.CSRC / FV.HEADER, "chain-" + name, edits)
             for name, edits in FV.DIAGNOSTICS.items()]
-         + [(FV.SOURCE, "chain-" + name, edits) for name, edits in FV.SOURCE_DIAGNOSTICS.items()])
+         + [(FV.SOURCE, "chain-" + name, edits) for name, edits in FV.SOURCE_DIAGNOSTICS.items()]
+         + [(_build.CSRC / GV.HEADER, "gen-" + name, edits)
+            for name, edits in GV.GEN_DIAGNOSTICS.items()]
+         + [(GV.SOURCE, "gen-" + name, edits)
+            for name, edits in {**GV.SOURCE_DIAGNOSTICS, **GV.DIAGNOSTICS}.items()])
 
 
 @pytest.mark.parametrize("source, name, edits", CASES, ids=[c[1] for c in CASES])
@@ -77,3 +82,28 @@ def test_chain_probe_needs_a_card(monkeypatch, capsys):
     assert FV.main(["--parent", "elsewhere"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
 
+
+
+def test_gen_probe_needs_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(GV.torch.cuda, "is_available", lambda: False)
+    assert GV.main(["--parent", "elsewhere"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_gen_probe_adds_the_attributes_entry_to_the_parents_builds(tmp_path):
+    """The parent's gen_chain.cu had no gen_chain_attributes: every parent
+    variant gains one (for static shared memory: the parent's kernel used no
+    other), before the error-string entry; the tree's variants leave the
+    source's own alone."""
+    assert GV.PARENT_ATTRIBUTES.startswith('extern "C" int gen_chain_attributes(int eq_bf16, ')
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, 0)" in (
+        GV.PARENT_ATTRIBUTES)
+    src = tmp_path / "gen_chain.cu"
+    src.write_text('int x;\nextern "C" const char* gen_chain_error_string(int err) {\n}\n')
+    for name, edits in GV.variants(parent=True).items():
+        text = _variants.variant_source(src, edits[GV.SOURCE.name].split(" ;; ")[-1])
+        assert text.count("gen_chain_attributes") == 1, name
+        assert text.index("gen_chain_attributes") < text.index("gen_chain_error_string"), name
+    tree = GV.variants(parent=False)
+    assert tree["as_is"] == {} and "libm_box_muller" in tree
+    assert all("gen_chain_attributes" not in e.get(GV.SOURCE.name, "") for e in tree.values())

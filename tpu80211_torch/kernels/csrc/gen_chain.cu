@@ -26,16 +26,35 @@
 // wrapper folds to (8, 128) lanes.
 //
 // Layout: chain.cuh's, 256 threads = 32 frames (lane) x 8 bin groups; group
-// g owns bins k = g, g+8, ...  Each thread draws the noise of its own bins
-// and recomputes the frame's taps; nothing crosses threads but the per-frame
-// sums (shared memory).  Blocks 0..3 are drawn twice (estimation, then
-// equalization) rather than kept in registers.
+// g owns bins k = g, g+8, ...  Each Philox word and each Box-Muller pair of a
+// frame is drawn once: 894 pairs and 841 Philox calls a frame at 8 taps (the
+// 909 pairs of its spectra but DC's 15 block pairs, which nothing uses: the
+// equalizer zeroes DC and LT-LS's zero there makes its MMSE terms 0), where
+// the design before drew 1,162 pairs and 1,109 calls.
+//   * taps: warp g draws taps l = g, g+8 into shared memory; after one
+//     barrier every thread sums its bins' CFR from them in f64, in the order
+//     l = 0..n_taps-1 as before, so h keeps its bits (gen.cuh);
+//   * the 16 pilot pairs of blocks 0..3, two per warp, before the rest: the
+//     pilot ratios feed the interpolators, and the rx spectra stay in shared
+//     memory for the equalizer;
+//   * then one pass over the 15 blocks draws every other bin once, adds
+//     blocks 0..3's MMSE dots on the way and equalizes every block by the
+//     PS-Linear blend (which needs LT-LS and the linear interpolator only);
+//     h_mmse follows that pass.
+// The per-frame sums cross threads through shared memory.
 //
-// What bounds it on this card.  Per frame ~910 Box-Muller pairs in f64 (log,
-// sqrt, sincos) plus ~870 Philox calls, and ~2e4 f32 FLOPs of chain math: at
-// B = 32,768 in stream mode it writes almost nothing, so it is bound by the
-// f64 transcendental work of the draws.  In full-output mode it writes ~6.6 KB
-// a frame (0.22 GB at B = 32,768).
+// What bounds it on this card.  The f64 work of Box-Muller: the FP64 pipe
+// runs at half the f32 rate, and the library's log and sincos cost 0.16 and
+// 0.12 ms of the 0.60 the design before took (H100 80GB HBM3 at 700 W;
+// PERF.md, section 6).  So gen.cuh takes ln from a 256-entry table and a
+// degree-7 series (half the library log's time or less) and sin and cos
+// from its own reduction and series (as dear as the library's, but with no
+// local array); the normals stay the plain version's.  Box-Muller still
+// takes ~0.24 ms of ~0.49.  Then Philox's integer rounds (~0.1 ms), the
+// chain's f32 math and divisions, and the stores in full-output mode (~6.6
+// KB a frame, 0.22 GB at B = 32,768).  Two blocks of 8 warps an SM: 3 would
+// need <= 85 registers and spill (probe blocks3).  The log table (4 KB)
+// takes the shared memory above 48 KB, so it is dynamic.
 
 #include "chain.cuh"
 #include "gen.cuh"
@@ -82,19 +101,25 @@ struct GenParams {
   float nsc;  // per-plane noise scale of a bin
 };
 
+constexpr int N_RED = 3 * N_AVG + 1;  // per-frame partial sums: MMSE dots of blocks 0..3, then
+constexpr int OW2 = 3 * N_AVG;        // the repeat difference's power
+
 struct GenSmem {
+  gen::LnEntry ln[gen::LN_ENTRIES];     // Box-Muller's log table
   float2 wi[N_KINDS][N_SC][N_PILOTS];
   float2 txs[N_BLOCKS][N_SC];
   float2 tpre[N_SC];
   float2 wc[N_SC][gen::MAX_TAPS];
-  float tscale[gen::MAX_TAPS];
-  float2 hp[N_AVG][N_PILOTS][FRAMES];
-  float red[GROUPS][3 * N_AVG][FRAMES];
+  float2 taps[gen::MAX_TAPS][FRAMES];   // each frame's taps, drawn once (gen::draw_taps)
+  float2 hp[N_AVG][N_PILOTS][FRAMES];   // pilot ratios of blocks 0..3
+  float2 prx[N_AVG][N_PILOTS][FRAMES];  // their rx spectra, kept for the equalizer
+  float red[GROUPS][N_RED][FRAMES];
 };
 
 template <typename EqT>
 __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
-  __shared__ GenSmem s;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GenSmem& s = *reinterpret_cast<GenSmem*>(smem_raw);
   const int lane = threadIdx.x % FRAMES;
   const int g = threadIdx.x / FRAMES;
   const long long f = static_cast<long long>(blockIdx.x) * FRAMES + lane;
@@ -106,6 +131,7 @@ __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
   const long long cols = stream ? LANES : batch;
   const bool keep = live && col >= 0;
 
+  gen::stage_ln(s.ln, threadIdx.x, THREADS);
   for (int i = threadIdx.x; i < N_KINDS * N_SC * N_PILOTS; i += THREADS)
     (&s.wi[0][0][0])[i] = make_float2(p.wi_re[i], p.wi_im[i]);
   for (int i = threadIdx.x; i < N_BLOCKS * N_SC; i += THREADS) {
@@ -117,10 +143,10 @@ __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
     const int k = i / p.n_taps, l = i % p.n_taps;
     s.wc[k][l] = make_float2(p.wc_re[i], p.wc_im[i]);
   }
-  for (int l = threadIdx.x; l < p.n_taps; l += THREADS) s.tscale[l] = p.tscale[l];
+  const uint2 key = gen::key_of(*p.seed);
+  gen::draw_taps<GROUPS, FRAMES>(key, f, p.n_taps, p.tscale, g, lane, s.taps);
   __syncthreads();
 
-  const uint2 key = gen::key_of(*p.seed);
   const float nsc = p.nsc;
   const float half = nsc * 0.5f;
   auto store_plane = [&](float* re, float* im, int k, float2 v) {
@@ -132,7 +158,7 @@ __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
 
   // -- channel -----------------------------------------------------------------
   float2 h[BINS];
-  gen::channel_bins<BINS, GROUPS, N_SC>(key, f, p.n_taps, s.tscale, s.wc, g, h);
+  gen::channel_bins<BINS, GROUPS, N_SC, FRAMES>(p.n_taps, s.taps, s.wc, g, lane, h);
   float hsq = 0.f;
 #pragma unroll
   for (int j = 0; j < BINS; ++j) {
@@ -142,6 +168,14 @@ __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
       hsq += h[j].x * h[j].x + h[j].y * h[j].y;
     }
   }
+
+  // the rx spectrum of block b at bin k, channel hk: tx_b H + nsc N
+  auto rx_bin = [&](int b, int k, float2 hk) {
+    const uint4 w = gen::draw(key, f, k, gen::BLOCK, b);
+    const float2 n = gen::normal_pair(w.x, w.y, s.ln);
+    const float2 c = gen::cmul_rn(s.txs[b][k], hk);
+    return make_float2(__fadd_rn(c.x, __fmul_rn(nsc, n.x)), __fadd_rn(c.y, __fmul_rn(nsc, n.y)));
+  };
 
   // -- preamble: two noisy repeats, averaged; sigma^2; LT-LS --------------------
   float2 hlt[BINS];
@@ -157,7 +191,7 @@ __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
       hlt[j] = make_float2(0.f, 0.f);
       if (k >= N_SC) continue;
       const uint4 w = gen::draw(key, f, k, gen::PREAMBLE);
-      const float2 n1 = gen::normal_pair(w.x, w.y), n2 = gen::normal_pair(w.z, w.w);
+      const float2 n1 = gen::normal_pair(w.x, w.y, s.ln), n2 = gen::normal_pair(w.z, w.w, s.ln);
       const float2 tp = s.tpre[k];
       const float2 cl = gen::cmul_rn(tp, h[j]);
       const float2 r = make_float2(__fadd_rn(cl.x, __fmul_rn(half, __fadd_rn(n1.x, n2.x))),
@@ -174,45 +208,25 @@ __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
       const float ex = hlt[j].x - h[j].x, ey = hlt[j].y - h[j].y;
       err[chain::H_LT] += ex * ex + ey * ey;
     }
-    s.red[g][0][lane] = ow2_part;
+    s.red[g][OW2][lane] = ow2_part;
+  }
+
+  // -- the pilots of blocks 0..3, drawn once and spread over the warps: warp g
+  // draws (block, pilot) pairs g and g + 8 of the 16, with the channel at the
+  // pilot's bin summed as channel_bins sums it; the ratios are for the
+  // interpolators, the rx spectra are kept for the equalizer
+  for (int i = g; i < N_AVG * N_PILOTS; i += GROUPS) {
+    const int b = i / N_PILOTS, q = i % N_PILOTS;
+    const int k = chain::PILOT0 + chain::PILOT_DELTA * q;
+    const float2 rb = rx_bin(b, k, gen::channel_bin<FRAMES>(p.n_taps, s.taps, s.wc, k, lane));
+    s.prx[b][q][lane] = rb;
+    s.hp[b][q][lane] = chain::cdiv(rb, s.txs[b][k]);
   }
   __syncthreads();
   float ow2 = 0.f;
 #pragma unroll
-  for (int gg = 0; gg < GROUPS; ++gg) ow2 += s.red[gg][0][lane];
+  for (int gg = 0; gg < GROUPS; ++gg) ow2 += s.red[gg][OW2][lane];
   ow2 = ow2 / (2.f * chain::N_FFT * N_SC);
-  __syncthreads();  // red is free again
-
-  // the rx spectrum of block b at bin k: tx_b H + nsc N
-  auto rx_bin = [&](int b, int j, int k) {
-    const uint4 w = gen::draw(key, f, k, gen::BLOCK, b);
-    const float2 n = gen::normal_pair(w.x, w.y);
-    const float2 c = gen::cmul_rn(s.txs[b][k], h[j]);
-    return make_float2(__fadd_rn(c.x, __fmul_rn(nsc, n.x)), __fadd_rn(c.y, __fmul_rn(nsc, n.y)));
-  };
-
-  // -- blocks 0..3: pilot ratios and the MMSE dots -------------------------------
-#pragma unroll 1
-  for (int b = 0; b < N_AVG; ++b) {
-    float su2 = 0.f, sr = 0.f, si = 0.f;
-#pragma unroll
-    for (int j = 0; j < BINS; ++j) {
-      const int k = g + GROUPS * j;
-      if (k >= N_SC) continue;
-      const float2 rb = rx_bin(b, j, k);
-      const float2 tb = s.txs[b][k];
-      const int q = chain::pilot_of(k);
-      if (q >= 0) s.hp[b][q][lane] = chain::cdiv(rb, tb);
-      const float2 u = chain::cmul(tb, hlt[j]);
-      su2 += u.x * u.x + u.y * u.y;
-      sr += u.x * rb.x + u.y * rb.y;
-      si += u.x * rb.y - u.y * rb.x;
-    }
-    s.red[g][3 * b + 0][lane] = su2;
-    s.red[g][3 * b + 1][lane] = sr;
-    s.red[g][3 * b + 2][lane] = si;
-  }
-  __syncthreads();
 
   // -- interpolators ---------------------------------------------------------------
   float2 hlin[BINS];
@@ -255,6 +269,50 @@ __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
     }
   }
 
+  // -- one pass over the 15 blocks: each bin drawn once (blocks 0..3's pilots
+  // from prx), blocks 0..3's MMSE dots on the way, every block equalized by
+  // the PS-Linear blend, DC to zero (its draw is never used: LT-LS is 0 there)
+  EqT* eq_re = static_cast<EqT*>(p.eq_re);
+  EqT* eq_im = static_cast<EqT*>(p.eq_im);
+#pragma unroll 1
+  for (int b = 0; b < N_BLOCKS; ++b) {
+    const bool est = b < N_AVG;
+    const float w_ps = static_cast<float>(b + 1) / N_BLOCKS;
+    const float w_lt = static_cast<float>(N_BLOCKS - 1 - b) / N_BLOCKS;
+    float su2 = 0.f, sr = 0.f, si = 0.f;
+#pragma unroll
+    for (int j = 0; j < BINS; ++j) {
+      const int k = g + GROUPS * j;
+      if (k >= N_SC) continue;
+      float2 e = make_float2(0.f, 0.f);
+      if (k != DC) {
+        const int q = chain::pilot_of(k);
+        const float2 rb = est && q >= 0 ? s.prx[b][q][lane] : rx_bin(b, k, h[j]);
+        if (est) {
+          const float2 u = chain::cmul(s.txs[b][k], hlt[j]);
+          su2 += u.x * u.x + u.y * u.y;
+          sr += u.x * rb.x + u.y * rb.y;
+          si += u.x * rb.y - u.y * rb.x;
+        }
+        const float2 hu = make_float2(w_lt * hlt[j].x + w_ps * hlin[j].x,
+                                      w_lt * hlt[j].y + w_ps * hlin[j].y);
+        e = chain::cdiv(rb, hu);
+      }
+      chk += e.x + e.y;
+      if (keep) {
+        const long long idx = (static_cast<long long>(b) * N_SC + k) * cols + col;
+        chain::store(eq_re + idx, e.x);
+        chain::store(eq_im + idx, e.y);
+      }
+    }
+    if (est) {
+      s.red[g][3 * b + 0][lane] = su2;
+      s.red[g][3 * b + 1][lane] = sr;
+      s.red[g][3 * b + 2][lane] = si;
+    }
+  }
+  __syncthreads();
+
   // -- MMSE, rank-1 closed form ---------------------------------------------------
   {
     float s_re[N_AVG], s_im[N_AVG];
@@ -289,32 +347,6 @@ __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
     }
   }
 
-  // -- equalize: the PS-Linear blend, DC to zero ------------------------------------
-  EqT* eq_re = static_cast<EqT*>(p.eq_re);
-  EqT* eq_im = static_cast<EqT*>(p.eq_im);
-#pragma unroll 1
-  for (int b = 0; b < N_BLOCKS; ++b) {
-    const float w_ps = static_cast<float>(b + 1) / N_BLOCKS;
-    const float w_lt = static_cast<float>(N_BLOCKS - 1 - b) / N_BLOCKS;
-#pragma unroll
-    for (int j = 0; j < BINS; ++j) {
-      const int k = g + GROUPS * j;
-      if (k >= N_SC) continue;
-      float2 e = make_float2(0.f, 0.f);
-      if (k != DC) {
-        const float2 hu = make_float2(w_lt * hlt[j].x + w_ps * hlin[j].x,
-                                      w_lt * hlt[j].y + w_ps * hlin[j].y);
-        e = chain::cdiv(rx_bin(b, j, k), hu);
-      }
-      chk += e.x + e.y;
-      if (keep) {
-        const long long idx = (static_cast<long long>(b) * N_SC + k) * cols + col;
-        chain::store(eq_re + idx, e.x);
-        chain::store(eq_im + idx, e.y);
-      }
-    }
-  }
-
   // -- per-frame sums across the bin groups ------------------------------------------
   __syncthreads();  // the MMSE dots in red are read
   s.red[g][0][lane] = chk;
@@ -341,11 +373,43 @@ __global__ void __launch_bounds__(THREADS, 2) gen_chain_kernel(GenParams p) {
   }
 }
 
+constexpr size_t SMEM = sizeof(GenSmem);  // above the 48 KB of static shared memory
+
 template <typename EqT>
 cudaError_t launch(const GenParams& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(gen_chain_kernel<EqT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((p.batch + FRAMES - 1) / FRAMES);
-  gen_chain_kernel<EqT><<<grid, THREADS, 0, stream>>>(p);
+  gen_chain_kernel<EqT><<<grid, THREADS, SMEM, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename EqT>
+cudaError_t attributes(int* out) {
+  cudaError_t err = cudaFuncSetAttribute(gen_chain_kernel<EqT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, gen_chain_kernel<EqT>);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gen_chain_kernel<EqT>, THREADS, SMEM);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes + SMEM);
+  out[3] = blocks;
+  return err;
+}
+
+// gen::normal_pair's terms for word pairs (a[i], b[i]): the radius, the
+// angle's sin and cos (f64), and the two normals.
+__global__ void normals_kernel(const uint32_t* a, const uint32_t* b, double* r, double* sn,
+                               double* cs, float2* z, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  r[i] = sqrt(-2.0 * gen::ln_uniform(gen::uniform_open(a[i]), gen::LN_TABLE));
+  gen::sincos_turn(b[i], &sn[i], &cs[i]);
+  z[i] = gen::normal_pair(a[i], b[i], gen::LN_TABLE);
 }
 
 }  // namespace
@@ -385,6 +449,27 @@ extern "C" int gen_chain_launch(const void* const* ptrs, int n_ptrs, int batch, 
   p.nsc = nsc;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return eq_bf16 ? launch<__nv_bfloat16>(p, st) : launch<float>(p, st);
+}
+
+// The Box-Muller terms of n word pairs: ptrs = a, b (uint32), then r, sin,
+// cos (f64) and the normals (n float2).  Returns cudaGetLastError().
+extern "C" int gen_normals_launch(const void* const* ptrs, long long n, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>((n + THREADS - 1) / THREADS);
+  normals_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(ptrs[0]), static_cast<const uint32_t*>(ptrs[1]),
+      static_cast<double*>(const_cast<void*>(ptrs[2])),
+      static_cast<double*>(const_cast<void*>(ptrs[3])),
+      static_cast<double*>(const_cast<void*>(ptrs[4])),
+      static_cast<float2*>(const_cast<void*>(ptrs[5])), n);
+  return cudaGetLastError();
+}
+
+// The kernel's instantiation for eq in bf16 (eq_bf16) or f32 on the current
+// card: out = registers and local (spill) bytes a thread, shared bytes a
+// block, resident blocks per SM.
+extern "C" int gen_chain_attributes(int eq_bf16, int* out) {
+  return eq_bf16 ? attributes<__nv_bfloat16>(out) : attributes<float>(out);
 }
 
 extern "C" const char* gen_chain_error_string(int err) {

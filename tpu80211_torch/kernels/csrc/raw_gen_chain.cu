@@ -7,7 +7,8 @@
 //
 // Replaces tpu80211/kernels/raw_gen_chain.py::_gen_raw_kernel (pallas_call
 // site _gen_raw_call), point by point:
-//   * the channel draw of gen_chain.cu (gen.cuh);
+//   * the channel draw of gen_chain.cu (gen.cuh: each tap drawn once, by
+//     one warp, into shared memory where the symbols' spectra go later);
 //   * the frame: 16 IDFTs (64 x 53) of tx_s H in f64, rounded to f32 and
 //     then to bf16 (the TPU kernel's bf16 placement), laid out as the long
 //     preamble [last 32 | LTS | LTS] and 15 blocks [CP 16 | 64];
@@ -46,8 +47,8 @@
 //
 // What bounds it on this card.  Before this design each frame row was stored
 // at its stream's own offset, 4 bytes a lane into 32 different rows, and
-// those stores took 3.6 of 8.4 ms (PERF.md).  Now: per stream ~2,050
-// Box-Muller pairs and a Philox call each in f64, 16 IDFTs (2.2e5 f64
+// those stores took 3.6 of 8.4 ms (PERF.md).  Now: per stream 2,056
+// Box-Muller pairs (8 taps) and a Philox call each, in f64, 16 IDFTs (2.2e5 f64
 // FMAs), the field written once (16 KB) and read by detection, then
 // raw_chain's detection (f64 matched filter on staged windows) and chain (its
 // DFTs on the tensor cores, its rows loaded per lane), which take most of
@@ -58,6 +59,7 @@
 #include "detect.cuh"
 #include "gen.cuh"
 
+#include <cstddef>
 #include <initializer_list>
 
 namespace gen {
@@ -111,12 +113,15 @@ __device__ __forceinline__ uint32_t bf16_pair(double re, double im) {
 }
 
 struct SynthSmem {
-  double2 v[N_FFT][N_SC];  // the IDFT
-  double2 x[N_SC][FRAMES];  // one symbol's spectrum per stream
+  gen::LnEntry ln[gen::LN_ENTRIES];  // Box-Muller's log table, kept for the field pass
+  double2 v[N_FFT][N_SC];            // the IDFT
+  union {
+    double2 x[N_SC][FRAMES];              // one symbol's spectrum per stream
+    float2 taps[gen::MAX_TAPS][FRAMES];  // before the symbols: the streams' taps
+  };
   float2 txs[chain::N_BLOCKS][N_SC];
   float2 tpre[N_SC];
   float2 wc[N_SC][gen::MAX_TAPS];
-  float tscale[gen::MAX_TAPS];
 };
 
 constexpr int HALF = FRAMES / 2;  // streams whose frames the field pass holds at once
@@ -124,10 +129,14 @@ constexpr int HALF = FRAMES / 2;  // streams whose frames the field pass holds a
 // The field pass's shared memory, in place of SynthSmem once the frames are
 // built: half the block's compact frames, and every stream's offset and CFO.
 struct FieldSmem {
+  gen::LnEntry ln[gen::LN_ENTRIES];  // SynthSmem's
   uint32_t frame[HALF][N_DISTINCT];
   int off[FRAMES];
   float eps[FRAMES];
 };
+
+static_assert(offsetof(SynthSmem, ln) == 0 && offsetof(FieldSmem, ln) == 0,
+              "the field pass finds the staged log table where the synthesis left it");
 
 struct RawGenParams {
   detect::Config det_cfg;
@@ -159,6 +168,7 @@ __device__ void synthesize(const RawGenParams& p, SynthSmem& s, FieldSmem& fs, l
                            bool live, int lane, int g) {
   const long long batch = p.chain.batch;
   const int ns = p.det_cfg.ns;
+  gen::stage_ln(s.ln, threadIdx.x, THREADS);
   for (int i = threadIdx.x; i < N_FFT * N_SC; i += THREADS)
     (&s.v[0][0])[i] = make_double2(p.v_re[i], p.v_im[i]);
   for (int i = threadIdx.x; i < chain::N_BLOCKS * N_SC; i += THREADS) {
@@ -172,12 +182,12 @@ __device__ void synthesize(const RawGenParams& p, SynthSmem& s, FieldSmem& fs, l
                             static_cast<const float*>(p.chain.txb_im)[k]);
   for (int i = threadIdx.x; i < N_SC * p.n_taps; i += THREADS)
     s.wc[i / p.n_taps][i % p.n_taps] = make_float2(p.wc_re[i], p.wc_im[i]);
-  for (int l = threadIdx.x; l < p.n_taps; l += THREADS) s.tscale[l] = p.tscale[l];
+  const uint2 key = gen::key_of(*p.seed);
+  gen::draw_taps<GROUPS, FRAMES>(key, f, p.n_taps, p.tscale, g, lane, s.taps);
   __syncthreads();
 
-  const uint2 key = gen::key_of(*p.seed);
   float2 h[BINS];
-  gen::channel_bins<BINS, GROUPS, N_SC>(key, f, p.n_taps, s.tscale, s.wc, g, h);
+  gen::channel_bins<BINS, GROUPS, N_SC, FRAMES>(p.n_taps, s.taps, s.wc, g, lane, h);
   if (live) {
 #pragma unroll
     for (int j = 0; j < BINS; ++j) {
@@ -201,7 +211,7 @@ __device__ void synthesize(const RawGenParams& p, SynthSmem& s, FieldSmem& fs, l
 
   auto noise = [&](long long stream, int r) {
     const uint4 w = gen::draw(key, stream, r, gen::NOISE);
-    return gen::normal_pair(w.x, w.y);
+    return gen::normal_pair(w.x, w.y, fs.ln);
   };
 
   // the frame's 1024 distinct samples, one symbol at a time: its spectrum

@@ -303,7 +303,8 @@ def gen_chain_plain(seed, batch: int, txs: Cplx, tpre: Cplx, snr_db: float = 20.
     """`fused_gen_chain` in plain PyTorch, on ``txs``' device: the same
     draws (`gen_draws`), then `gen_assemble`."""
     _check(batch, txs, tpre, eq_dtype)
-    draws = gen_draws(seed, batch, channel.n_taps_for(channel_model), txs.re.device)
+    n_taps = channel_consts(txs.re.device, channel_model).tscale.shape[0]
+    draws = gen_draws(seed, batch, n_taps, txs.re.device)
     return gen_assemble(draws, txs, tpre, snr_db, eq_dtype, channel_model, stream_sums)
 
 
@@ -363,24 +364,72 @@ def wrap_i32(v):
     return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    lib = _build.load("gen_chain")
+def bind(lib):
+    """(launch, error string) of a library built from csrc/gen_chain.cu (or
+    from a variant of it), with the ctypes signatures of its functions set."""
     fn = lib.gen_chain_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.gen_chain_attributes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.gen_chain_attributes.restype = ctypes.c_int
     err_string = lib.gen_chain_error_string
     err_string.argtypes = [ctypes.c_int]
     err_string.restype = ctypes.c_char_p
     return fn, err_string
 
 
-def _launch(seed, batch, txs, tpre, snr_db, eq_dtype, channel_model, stream_sums) -> dict:
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    return bind(_build.load("gen_chain"))
+
+
+def kernel_attributes(eq_dtype: torch.dtype = torch.bfloat16, lib=None) -> dict:
+    """The kernel that `fused_gen_chain` launches for eq in ``eq_dtype`` (the
+    same in stream and full mode), on the current card: registers and local
+    (spill) bytes a thread, shared bytes a block, and resident blocks per SM
+    (32 frames a block).  ``lib``: another build of the source."""
+    lib = lib or _build.load("gen_chain")
+    _, err_string = bind(lib)
+    out = (ctypes.c_int * 4)()
+    F.raise_on_error(lib.gen_chain_attributes(int(eq_dtype == torch.bfloat16), out), "gen_chain",
+                     err_string)
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
+
+
+def kernel_normals(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                                              torch.Tensor, Cplx]:
+    """The kernels' Box-Muller (csrc/gen.cuh::normal_pair) on the card, for
+    word pairs (a, b): 1-d int64 CUDA tensors of 32-bit words.  Returns the
+    radius, the angle's sin and cos (float64) and the normals (float32), to
+    hold them against `normal_pair`; the generative kernels draw their own
+    words and never call this."""
+    require_cuda(a)
+    if a.shape != b.shape or a.dim() != 1 or a.device != b.device:
+        raise ValueError(f"want two 1-d word tensors on one device, got {a.shape}, {b.shape}")
+    _, err_string = _kernel_fn()
+    fn = _build.load("gen_chain").gen_normals_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev, n = a.device, a.shape[0]
+    words = [wrap_i32(w).to(torch.int32).contiguous() for w in (a, b)]
+    terms = [torch.empty(n, dtype=torch.float64, device=dev) for _ in range(3)]
+    z = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    ptrs = F.pointer_table([*words, *terms, z])
+    with torch.cuda.device(dev):
+        err = fn(ptrs, n, torch.cuda.current_stream(dev).cuda_stream)
+    F.raise_on_error(err, "gen_chain normals", err_string)
+    return (*terms, Cplx(z[:, 0], z[:, 1]))
+
+
+def _launch(seed, batch, txs, tpre, snr_db, eq_dtype, channel_model, stream_sums,
+            kernel=None) -> dict:
+    """One launch; ``kernel`` = `bind` of another build of the source (the
+    card probe's variants), else the package's own."""
     global launches
     _check(batch, txs, tpre, eq_dtype)
     require_cuda(txs.re)
-    fn, err_string = _kernel_fn()
+    fn, err_string = kernel or _kernel_fn()
     dev = txs.re.device
     seed_t = seed_tensor(seed, dev)
     cc = channel_consts(dev, channel_model)

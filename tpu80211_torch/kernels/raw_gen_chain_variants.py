@@ -83,12 +83,12 @@ DIAGNOSTICS = {
         "          const uint32_t b = 0x3F803F80u;"),
     "no_noise_draws": (
         "    const uint4 w = gen::draw(key, stream, r, gen::NOISE);\\n"
-        "    return gen::normal_pair(w.x, w.y); -> "
+        "    return gen::normal_pair(w.x, w.y, fs.ln); -> "
         "    uint32_t w = static_cast<uint32_t>(stream) * 0x9E3779B9u ^ static_cast<uint32_t>(r) * 0x85EBCA6Bu;\\n"
         "    w = (w ^ (w >> 15)) * 0x2C1B3C6Du;\\n"
         "    return make_float2(3.4641f * (gen::uniform(w) - 0.5f), 3.4641f * (gen::uniform(w << 8) - 0.5f));"),
     "no_box_muller": (
-        "    return gen::normal_pair(w.x, w.y); -> "
+        "    return gen::normal_pair(w.x, w.y, fs.ln); -> "
         "    return make_float2(3.4641f * (gen::uniform(w.x) - 0.5f), 3.4641f * (gen::uniform(w.y) - 0.5f));"),
     "no_idft": "    for (int k = 0; k < N_SC; ++k) { ->     for (int k = 0; k < 1; ++k) {",
     "synthesis_only": (
