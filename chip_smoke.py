@@ -64,9 +64,19 @@ nvcc per source, all started together), then:
    multiply-adds and shared loads its factorization issues per system; then
    times both entries x both methods at 8192 and 262144 systems, kernel and
    plain version in turns, and ``torch.linalg.solve`` on the same
-   materialized complex64 systems (the library yardstick).
+   materialized complex64 systems (the library yardstick);
+11. runs every default row of ``python -m tpu80211_torch.bench.throughput``
+   (the tx-constant, per-frame, serving and int8 chain rows, raw, raw32,
+   genraw, dense) at its full shape with a loop length of 8: each row's
+   gates, both fences on the host clock and on CUDA events, each row printed
+   on its own line;
+12. runs ``pipeline.stream.run_stream`` (``sc.rx_chain_freq`` on the card)
+   over ``synthetic_batches(engine="native")``, B=32768, 3 batches: shards
+   written, batch 0's first 1024 frames against the CPU, a resume;
+13. runs ``native_time_batches`` into ``fused_rx_chain`` (per-frame tx) at
+   B=32768, a 1024-frame slice against the plain version.
 
-Every failed check raises, so the script exits non-zero.  The last two
+Kernels are timed through ``tpu80211_torch/utils/timing.py``.  Every failed check raises, so the script exits non-zero.  The last two
 lines are JSON: the kernel table (each kernel's launches on its path, max
 abs error, card and plain ms, and its bound: bytes over 3.35 TB/s or
 operations, the chain's bf16 DFT products over 989 T/s and the rest over
@@ -78,7 +88,6 @@ from __future__ import annotations
 import json
 import pathlib
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -100,6 +109,8 @@ from tpu80211_torch.pipeline import raw as P
 from tpu80211_torch.pipeline import rx as RXP
 from tpu80211_torch.pipeline import sc as SCP
 from tpu80211_torch.pipeline import stream as S
+from tpu80211_torch.bench import throughput as TP
+from tpu80211_torch.utils.timing import bound, card, in_turns, nbytes, time_ms
 
 SEED = 0
 B_SMALL = 1000      # ragged: not a multiple of the kernel's 32 frames
@@ -121,13 +132,11 @@ B_GEN_SMALL = 1024  # phase 2c, and the plain version's slice of phase 7
 GEN_SEED = 7        # bench.py's generative seed
 N_STREAM = 4        # stream batches per generator in phase 7
 KERNELS = ("fused_chain", "detect", "raw_chain", "gen_chain", "raw_gen_chain", "mmse_solve")
-# the bound: the larger of bytes over the HBM rate and operations over their
-# peak rates (NVIDIA's H100 SXM data sheet): the chain's DFTs on bf16
-# operands at the tensor cores' dense bf16 rate (the TPU kernel feeds them
-# to its MXU in bf16), every other operation at the f32 rate outside them
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_TC_OPS_PER_S = 989e12
+# the bound (utils/timing.py): the larger of bytes over the HBM rate and
+# operations over their peak rates (NVIDIA's H100 SXM data sheet): the
+# chain's DFTs on bf16 operands at the tensor cores' dense bf16 rate (the
+# TPU kernel feeds them to its MXU in bf16), every other operation at the
+# f32 rate outside them
 
 
 def check(ok: bool, msg: str) -> None:
@@ -478,18 +487,11 @@ def phase_small_raw(cap, dev) -> dict:
 
 
 def raw_workload(cap, dev):
-    """The --raw workload's pieces on the card: the capture's frame in the
-    first 1360 rows of every stream (bf16), AWGN of NOISE per plane, and
-    offsets in [40, NS − 1400) from a seeded generator."""
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    frame = np.concatenate([cap.rx_lptot, cap.rx_packet])
-    sig = Cplx(torch.zeros((NS, B_RAW), dtype=torch.bfloat16, device=dev),
-               torch.zeros((NS, B_RAW), dtype=torch.bfloat16, device=dev))
-    for plane, part in zip(sig, (frame.real, frame.imag)):
-        plane[:frame.size] = torch.tensor(part, dtype=torch.float32, device=dev)[:, None]
-    noise = Cplx(*(NOISE * torch.randn((NS, B_RAW), generator=gen, device=dev) for _ in range(2)))
-    offs = torch.randint(40, NS - 1400, (B_RAW,), generator=gen, device=dev, dtype=torch.int32)
-    return sig, noise, offs
+    """The --raw workload's pieces on the card (the bench's
+    ``raw_pieces``): the capture's frame in the first 1360 rows of every
+    stream (bf16), AWGN of NOISE per plane, and offsets in [40, NS − 1400)
+    from a seeded generator."""
+    return TP.raw_pieces(cap, B_RAW, dev, SEED)
 
 
 def with_stream_cfo(x: Cplx, eps: float) -> Cplx:
@@ -570,14 +572,6 @@ def phase_raw(cap, dev):
     return launches, errs, (x, lts, txc, sig, noise, offs)
 
 
-def in_turns(kernel, plain, **plain_kw) -> tuple[float, float]:
-    """plain, kernel, kernel, plain: (kernel ms, plain ms), medians;
-    ``plain_kw`` sets ``time_ms``'s calls and reps for the plain version."""
-    p1, k1, k2, p2 = (time_ms(plain, **plain_kw), time_ms(kernel), time_ms(kernel),
-                      time_ms(plain, **plain_kw))
-    return statistics.median([k1, k2]), statistics.median([p1, p2])
-
-
 def phase_raw_timing(raw_in, main_in, dev) -> dict:
     """6: the raw receiver, detection, placement and the synced chain
     against their plain versions, in turns."""
@@ -625,25 +619,6 @@ def occupancy(at: dict) -> str:
     """A kernel's attributes as phases 6, 8 and 10 print them."""
     return (f"{at['registers']} registers, {at['local_bytes']} B local (spill) a thread, "
             f"{at['shared_bytes']} B shared a block, {at['blocks_per_sm']} blocks per SM")
-
-
-def time_ms(fn, calls: int = 10, reps: int = 5) -> float:
-    """Steady-state ms per call: CUDA events around ``calls`` back-to-back
-    calls (the queue stays full, as in a stream of steps), median of
-    ``reps`` such runs after a warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
 
 
 def phase_timing(pk: Cplx, lp: Cplx, txc, dev) -> tuple[float, float]:
@@ -1246,29 +1221,6 @@ def gen_bounds(gen_in, dev) -> dict:
                                    nbytes(txc, lts, raw), B_GEN * DFT_OPS)}
 
 
-def nbytes(*xs) -> int:
-    """Bytes of tensors, split planes, tuples and dicts of them."""
-    n = 0
-    for x in xs:
-        if isinstance(x, dict):
-            n += nbytes(*x.values())
-        elif isinstance(x, (tuple, list)):
-            n += nbytes(*x)
-        elif isinstance(x, torch.Tensor):
-            n += x.numel() * x.element_size()
-    return n
-
-
-def bound(ops: float, n_bytes: int, tc_ops: float = 0.0) -> tuple[float, str]:
-    """The least time the card could take, ms, and what sets it: each input
-    read and each output written once at the HBM rate, or the operations:
-    ``ops`` at the f32 rate and ``tc_ops`` (the DFTs' bf16 products) at the
-    tensor cores' bf16 rate."""
-    t_ops = (ops / F32_OPS_PER_S + tc_ops / BF16_TC_OPS_PER_S) * 1e3
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def bounds(main_in, raw_in, gen_in, dev) -> dict:
     """Each kernel's bound at the shapes phases 4, 6 and 8 time, from this
     run's inputs and outputs."""
@@ -1292,6 +1244,102 @@ def bounds(main_in, raw_in, gen_in, dev) -> dict:
     }
 
 
+# -- the bench rows and the host stream (phases 11, 12, 13) ---------------------------------
+
+BENCH_ITERS = 8   # phase 11's loop length: the bench's full shapes, short loops
+N_HOST = 3        # phase 12's batches
+
+
+def phase_bench(dev) -> dict:
+    """11: every default row of ``python -m tpu80211_torch.bench.throughput``
+    at its full shape with loop length 8: its gates, both fences on both
+    clocks, each row printed; returns the full rows."""
+    def log(name, row):
+        print(f"phase 11: {name}: {json.dumps(TP.compact(row), separators=(',', ':'))}", flush=True)
+
+    torch.cuda.synchronize()
+    F.launches = D.launches = D.place_launches = R.launches = RG.launches = MS.launches = 0
+    rows = TP.run(TP.DEFAULT_ROWS, iters=BENCH_ITERS, device=dev, log=log)
+    torch.cuda.synchronize()
+    launches = {"fused_chain": F.launches, "place": D.place_launches, "raw_chain": R.launches,
+                "raw_gen_chain": RG.launches, "mmse_solve": MS.launches}
+    for k, n in launches.items():
+        check(n > 0, f"the bench rows launched no {k} kernel")
+    line = json.dumps(TP.summary(rows, dev), separators=(",", ":"))
+    check(len(line) < TP.MAX_LINE, f"the bench line has {len(line)} characters")
+    print(f"phase 11 ok: {len(rows)} bench rows gated and timed (loop length {BENCH_ITERS}), "
+          f"the bench line {len(line)} characters; launches {launches}")
+    return rows
+
+
+def phase_host_stream(dev) -> None:
+    """12: ``run_stream`` (``sc.rx_chain_freq`` on the card) over the native
+    engine's batches, B=32768, 3 batches: shards persisted, batch 0's first
+    1024 frames against the same frames on the CPU (h 1e-4, h_mmse 1e-3),
+    and a run stopped after 2 batches resumed to 3, its shards those of the
+    whole run."""
+    def batches(n):
+        return S.synthetic_batches(n, B_GEN, seed=SEED, engine="native")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, resumed = pathlib.Path(tmp) / "whole", pathlib.Path(tmp) / "resumed"
+        t0 = time.perf_counter()
+        res = S.run_stream(batches(N_HOST), out_dir=str(whole), device=dev)
+        wall = time.perf_counter() - t0
+        check(res["frames"] == N_HOST * B_GEN and res["batches"] == N_HOST, f"run_stream: {res}")
+        cursor = json.loads((whole / "cursor.json").read_text())
+        check(cursor["done"] == list(range(N_HOST)), f"run_stream cursor {cursor}")
+        shard = np.load(whole / "h_est_000000.npz")
+        want = SCP.rx_chain_freq(*(x[:B_SLICE] for x in next(batches(1))))
+        errs = {}
+        for k in S._STREAM_ESTS:
+            got = torch.from_numpy(shard[k])
+            check(tuple(got.shape) == (B_GEN, 53) and bool(torch.isfinite(got).all()),
+                  f"run_stream shard 0: {k} shape {tuple(got.shape)} or not finite")
+            errs[k] = rel(got[:B_SLICE], getattr(want, k))
+            tol = 1e-3 if k == "h_mmse" else 1e-4
+            check(errs[k] <= tol, f"run_stream shard 0: {k} rel err {errs[k]:.3g} against the CPU")
+        S.run_stream(batches(2), out_dir=str(resumed), device=dev)
+        again = S.run_stream(batches(N_HOST), out_dir=str(resumed), device=dev)
+        check(again["batches"] == 1 and again["frames"] == B_GEN, f"resume ran {again}")
+        for i in range(N_HOST):
+            a, b = (np.load(d / f"h_est_{i:06d}.npz") for d in (whole, resumed))
+            for k in S._STREAM_ESTS:
+                err = float(np.abs(a[k] - b[k]).max() / np.abs(a[k]).max())
+                check(err <= 1e-6, f"resume: batch {i} {k} differs by {err:.3g}")
+    print(f"phase 12 ok: run_stream over the native engine, {N_HOST} x {B_GEN} frames on the card "
+          f"in {wall:.2f} s ({res['frames'] / wall:.4g} frames/s, host generation and shard "
+          f"writes included); shard 0's first {B_SLICE} frames == the CPU's (max rel err "
+          f"{max(errs.values()):.3g}); resumed after 2 batches to the same shards")
+
+
+def phase_native_fused(dev) -> tuple[int, float]:
+    """13: ``native_time_batches`` into the batch-major ``fused_rx_chain``
+    (#2, per-frame tx, f32 planes) at B=32768; a 1024-frame slice against
+    the plain version at the f32 tolerances.  Returns (launches, max abs
+    err)."""
+    (args,) = list(S.native_time_batches(1, B_GEN, seed=SEED))
+    ins = [c.map(lambda t: t.to(dev)) for c in args]
+    torch.cuda.synchronize()
+    F.launches = 0
+    out = F.fused_rx_chain(*ins)
+    torch.cuda.synchronize()
+    launches = F.launches
+    check(launches > 0, "native_time_batches -> fused_rx_chain launched no fused_chain kernel")
+    for k, v in out.items():
+        for t in (v if isinstance(v, Cplx) else (v,)):
+            check(t.shape[0] == B_GEN and bool(torch.isfinite(t).all()), f"native fused: {k}")
+    tx_pkt, rx_pkt, tx_lp, rx_lp = (c.map(lambda t: t[:B_SLICE].T.contiguous()) for c in ins)
+    want = F.fused_chain_plain(rx_pkt, rx_lp, F.TxFrames(tx_pkt, tx_lp), F.chain_consts(dev))
+    lane = {k: v if k in ("ow2", "cfo", "checksum") else
+            v.map(lambda t: t.permute(1, 2, 0) if t.dim() == 3 else t.T) for k, v in out.items()}
+    max_abs = compare("native fused slice", lane, want, *TOL[torch.float32], slice(0, B_SLICE))
+    torch.cuda.synchronize()
+    print(f"phase 13 ok: native_time_batches -> fused_rx_chain at B={B_GEN} f32 (per-frame tx); "
+          f"a {B_SLICE}-frame slice == plain, max abs err {max_abs:.3g}; {launches} launch")
+    return launches, max_abs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1299,9 +1347,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    print(smi.strip().splitlines()[0])
+    print(card())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.build_all([_build.CSRC / f"{name}.cu" for name in KERNELS])
@@ -1319,6 +1365,9 @@ def main() -> int:
     t.update(phase_gen_timing(gen_in, dev))
     solve_launches, errs9 = phase_solve(cap, dev)
     solve_t, solve_lower = phase_solve_timing(dev)
+    phase_bench(dev)
+    phase_host_stream(dev)
+    phase_native_fused(dev)
     lower = bounds(main_in, raw_in, gen_in, dev)
     # the solve rows at the main path's shape and method (gauss, the
     # default of sc.ps_mmse_dense and of the dense_pallas solver); the bound

@@ -10,7 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from tpu80211_torch.bench import quality as Q
+from tpu80211_torch.bench import throughput as TP
 from tpu80211_torch.cplx import Cplx
+from tpu80211_torch.datasets import native_engine
 from tpu80211_torch.datasets.loader import load_capture
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
@@ -24,6 +27,7 @@ from tpu80211_torch.pipeline import raw as P
 from tpu80211_torch.pipeline import rx as RX
 from tpu80211_torch.pipeline import sc as SCH
 from tpu80211_torch.pipeline import stream as S
+from tpu80211_torch.utils import timing
 
 from _torch_inputs import (TOL, assert_matches, lane_major, lts_taps, make_frames, make_streams,
                            rel, to_np, torch_planes, with_cfo)
@@ -970,3 +974,95 @@ def test_mmse_solve_capture_like_ill_conditioned(entry, method, dev):
     sm = SCH.ps_mmse_sm(tx_blocks, rx_blocks, ow2, h_lt)
     assert rel(to_np(est[False]), to_np(est[True])) < 1e-2
     assert rel(to_np(est[False]), to_np(sm)) < 5e-2
+
+
+# -- the bench rows, the host stream, and the placement's offset check --------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TP.ROWS))
+def test_bench_row_on_card(name, dev):
+    """Every bench row at B=2,048 and loop length 2 on the card: its gates
+    pass (a failure raises), and both fences read on both clocks."""
+    row = TP.run_row(name, batch=2048, iters=2, device=dev)
+    for fence in ("loop_ms", "batch_ms"):
+        assert row[fence]["event"] > 0 and row[fence]["host"] > 0, fence
+    assert row["idle_share"] is not None and row["idle_share"] < 1.0
+    assert len(row["marginals_s"]["loop"]) == TP.REPS
+
+
+@pytest.mark.cuda
+def test_place_streams_reads_nothing_back(dev):
+    """The placement kernel's wrapper, and one ``raw`` stream step around it,
+    run under ``set_sync_debug_mode("error")``: no host read of the offsets
+    (or of anything else) on the card."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sig = Cplx(*(torch.randn(NS, 256, generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2)))
+    noise = Cplx(*(torch.randn(NS, 256, generator=gen, device=dev) for _ in range(2)))
+    offs = torch.randint(0, NS, (256,), generator=gen, device=dev, dtype=torch.int32)
+    step, state = S.make_device_stream_step(1024, seed=3, gen="raw", device=dev)
+    want = D.place_streams(sig, noise, offs)
+    _, _, state = step(0, state)  # builds, loads and uploads the constants once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = D.place_streams(sig, noise, offs)
+        summary, _, state = step(1, state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
+    assert float(summary["detect_rate"]) > 0.9
+
+
+@pytest.mark.cuda
+def test_run_stream_on_card_matches_the_cpu(tmp_path, dev):
+    """``run_stream`` on the card (pinned, non-blocking uploads) writes the
+    shards the CPU run writes, within 1e-4 (h_mmse 1e-3), and resumes."""
+    engine = "native" if native_engine.available() else "torch"
+
+    def batches(n):
+        return S.synthetic_batches(n, 512, seed=4, engine=engine)
+
+    card = S.run_stream(batches(3), out_dir=str(tmp_path / "card"), device=dev)
+    cpu = S.run_stream(batches(3), out_dir=str(tmp_path / "cpu"), device="cpu")
+    assert card["frames"] == cpu["frames"] == 1536 and card["batches"] == 3
+    for i in range(3):
+        a, b = (np.load(tmp_path / d / f"h_est_{i:06d}.npz") for d in ("card", "cpu"))
+        for k in S._STREAM_ESTS:
+            assert rel(a[k], b[k]) <= (1e-3 if k == "h_mmse" else 1e-4), (i, k)
+    again = S.run_stream(batches(4), out_dir=str(tmp_path / "card"), device=dev)
+    assert again["batches"] == 1
+
+
+@pytest.mark.cuda
+def test_native_time_batches_into_fused_chain_on_card(dev):
+    if not native_engine.available():
+        pytest.skip("the native data engine does not build here")
+    (args,) = list(S.native_time_batches(1, 1000, seed=9))
+    got = F.fused_rx_chain(*(c.map(lambda t: t.to(dev)) for c in args))
+    want = F.fused_rx_chain(*args)  # the plain version, on the CPU
+    torch.cuda.synchronize()
+    for name in (*F.OUT_NAMES, "eq"):
+        tol = TOL["f32"]["eq" if name == "eq" else "h_mmse" if name == "h_mmse" else "h"]
+        assert rel(to_np(got[name]), to_np(want[name])) <= tol, name
+
+
+@pytest.mark.cuda
+def test_quality_point_fused_on_card(dev):
+    """The fused chain's quality point on the card against the plain
+    version's on the CPU: other draws (a CUDA generator), the same
+    statistics: NMSE within 1 dB at B=1,024."""
+    got = Q.quality_point_fused(20.0, batch=1024, device=dev)["estimators"]
+    want = Q.quality_point_fused(20.0, batch=1024, device="cpu")["estimators"]
+    for name in got:
+        assert abs(got[name]["nmse_db"] - want[name]["nmse_db"]) <= 1.0, name
+
+
+@pytest.mark.cuda
+def test_timeit_times_with_events(dev):
+    a = torch.randn(512, 512, device=dev)
+    s = timing.timeit(torch.mm, a, a, iters=5, device=dev)
+    assert 0 < s < 1.0
+    assert timing.time_ms(lambda: torch.mm(a, a), calls=2, reps=2) > 0

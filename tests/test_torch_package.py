@@ -158,10 +158,14 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from tpu80211_torch import convert
+    from tpu80211_torch.bench import quality, throughput
     from tpu80211_torch.kernels import gen_chain, raw_gen_chain
     from tpu80211_torch.pipeline import stream
+    from tpu80211_torch.utils import timing
 
     for fn in (convert.chain_consts, convert.tx_spectra, convert.lts_ref, convert.mf_taps,
                stream.make_device_stream_step, stream.run_stream_device, gen_chain.gen_draws,
-               raw_gen_chain.raw_draws):
+               raw_gen_chain.raw_draws, stream.run_stream, quality.quality_point,
+               quality.quality_sweep, quality.quality_point_fused, quality.quality_sweep_fused,
+               throughput.run_row, throughput.run, timing.timeit):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__

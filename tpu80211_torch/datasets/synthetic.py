@@ -25,6 +25,7 @@ import torch
 
 from tpu80211_torch import constants as C
 from tpu80211_torch.ops import channel
+from tpu80211_torch.utils.metrics import pam_levels
 
 MODULATIONS = ("qpsk", "qam16", "qam64")
 
@@ -38,16 +39,6 @@ class FrameBatch(NamedTuple):
     rx_symb: torch.Tensor          # (B, 15, 53)
     ow2: torch.Tensor              # (B,) float32 noise power
     h_true: torch.Tensor           # (B, 53) the channel
-
-
-def pam_levels(m: int) -> np.ndarray:
-    """Per-axis PAM levels of square m-QAM at unit average symbol power;
-    m ∈ {4, 16, 64} → 2, 4 or 8 levels per axis."""
-    k = int(np.sqrt(m))
-    if k * k != m or k not in (2, 4, 8):
-        raise ValueError(f"m must be 4, 16 or 64, got {m}")
-    lv = np.arange(-(k - 1), k, 2, dtype=np.float64)
-    return lv / np.sqrt(np.mean(lv ** 2) * 2.0)
 
 
 @functools.lru_cache(maxsize=None)

@@ -170,6 +170,10 @@ class RawStreamDraws(NamedTuple):
 
 def raw_draws(gen: torch.Generator, batch: int, ns: int = 2048,
               channel_model: str | None = None, min_off: int = 40) -> RawStreamDraws:
+    """One batch's draws; the offsets lie in [min_off, ns − 1360) by
+    construction, so the placement needs no host-side check of them."""
+    if min_off < 0:
+        raise ValueError(f"min_off must be >= 0, got {min_off}")
     if ns < FRAME + min_off:
         raise ValueError(f"ns = {ns} is shorter than a {FRAME}-sample frame after {min_off}")
     taps = channel_draws(gen, batch, channel_model)

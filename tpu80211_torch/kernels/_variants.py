@@ -17,12 +17,11 @@ from __future__ import annotations
 import ctypes
 import pathlib
 import re
-import statistics
 import subprocess
 
-import torch
 
 from tpu80211_torch.kernels import _build
+from tpu80211_torch.utils.timing import card, time_ms  # noqa: F401  (the probes' clock)
 
 
 def variant_source(source: pathlib.Path, edits: str) -> str:
@@ -69,27 +68,3 @@ def build(source: pathlib.Path, variants: dict, out: pathlib.Path) -> dict:
                        re.findall(r"Used (\d+) registers", log),
                        re.findall(r"(\d+) bytes spill stores", log))
     return built
-
-
-def time_ms(fn, calls: int = 10, reps: int = 5) -> float:
-    """ms per call: CUDA events around ``calls`` back-to-back calls, median
-    of ``reps`` runs after a warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()

@@ -1,7 +1,17 @@
-"""The device-resident stream: frames made and received on the card.
+"""Streams: the receive chain over an unbounded frame stream.
 
-The counterpart of the device part of ``tpu80211/pipeline/stream.py``
-(``make_device_stream_step``, ``run_stream_device``).  A streamed step is
+The counterpart of ``tpu80211/pipeline/stream.py``, in two halves.
+
+**The host stream** (`run_stream`, `synthetic_batches`,
+`native_time_batches`): batches made on the host (the native C++ engine
+or a ``torch.Generator``) go through a receive function on the device in
+fixed-size batches.  Batch i+1 is uploaded from pinned host memory without
+blocking while batch i runs; batch i's estimates are copied back into
+pinned memory behind its work, and written (``h_est_{i:06d}.npz``, with a
+``cursor.json`` for resume) once batch i+1 is dispatched.
+
+**The device-resident stream** (``make_device_stream_step``,
+``run_stream_device``): frames made and received on the card.  A streamed step is
 tx-constant (every frame carries the shipped capture's packet) and draws a
 fresh channel and noise per frame on the device; only per-batch summaries
 and a sampled record leave it.  Four generators:
@@ -28,7 +38,7 @@ bit-deterministic: the state after every batch is persisted in
 
 Where the JAX package clamps the detected count to 1, a batch with no
 detection here reports ``evm_rms`` NaN, not a perfect 0.  The multi-chip
-(``mesh``) step is not ported yet.
+(``mesh``) step and ``run_stream``'s ``mesh`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,19 +46,21 @@ from __future__ import annotations
 import json
 import pathlib
 import time
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
 from tpu80211_torch import constants as C
 from tpu80211_torch.cplx import Cplx
-from tpu80211_torch.datasets import synthetic_sc
+from tpu80211_torch.datasets import native_engine, synthetic, synthetic_sc
 from tpu80211_torch.datasets.loader import load_capture
 from tpu80211_torch.kernels import fused_chain as F
 from tpu80211_torch.kernels import gen_chain as G
 from tpu80211_torch.kernels import raw_chain as R
 from tpu80211_torch.kernels import raw_gen_chain as RG
 from tpu80211_torch.ops.detect import lts_time_symbol
+from tpu80211_torch.pipeline import sc
 
 _STREAM_ESTS = F.OUT_NAMES
 GENERATORS = ("kernel", "xla", "raw", "kernel_raw")
@@ -84,8 +96,151 @@ class _Sink:
         (self.dir / "cursor.json").write_text(
             json.dumps({"done": sorted(self.cursor), "states": self.states}))
 
+    def write(self, i: int, arrs: dict) -> None:
+        """Batch ``i``'s estimates (numpy arrays by name) as a shard, then
+        the cursor."""
+        if not self.dir:
+            return
+        np.savez_compressed(self.dir / f"h_est_{i:06d}.npz", **arrs)
+        self.cursor.add(i)
+        self._write_cursor()
+
     def path_str(self):
         return str(self.dir) if self.dir else None
+
+
+# -- the host stream --------------------------------------------------------------------------
+
+
+def _tree_map(fn, x):
+    """``fn`` on every tensor of a tensor, a `Cplx`, or tuples and lists of
+    them (numpy arrays become tensors first)."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_tree_map(fn, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_map(fn, v) for v in x)
+    return x
+
+
+def _upload(host_args, dev: torch.device):
+    """The batch's arguments on ``dev``: on a card, each tensor is copied
+    into pinned host memory and uploaded without blocking the host."""
+    if dev.type == "cuda":
+        return _tree_map(lambda t: t.pin_memory().to(dev, non_blocking=True), host_args)
+    return _tree_map(lambda t: t.to(dev), host_args)
+
+
+def _stage(out, dev: torch.device, keep: bool):
+    """Start copying a batch's estimates to the host behind its work: (the
+    host tensors by name, or None without ``keep``; the frame count; an
+    event recorded after the copies on a card, else None)."""
+    h = out.h_mmse
+    lead = (h.re if isinstance(h, Cplx) else h).shape[:-1]
+    host = None
+    if keep:
+        host = {}
+        for name in _STREAM_ESTS:
+            v = getattr(out, name)
+            v = v.to_complex() if isinstance(v, Cplx) else v
+            if dev.type == "cuda":
+                pinned = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host[name] = pinned.copy_(v, non_blocking=True)
+            else:
+                host[name] = v
+    event = None
+    if dev.type == "cuda":
+        event = torch.cuda.Event()
+        event.record()
+    return host, int(np.prod(lead)) if lead else 1, event
+
+
+def _finish(pending, sink: _Sink) -> int:
+    """Fence batch ``i`` (its event), write its shard; returns its frames."""
+    i, (host, frames, event) = pending
+    if event is not None:
+        event.synchronize()
+    if host is not None:
+        sink.write(i, {k: v.numpy() for k, v in host.items()})
+    return frames
+
+
+def run_stream(batches: Iterable, fn: Callable | None = None, out_dir: str | None = None,
+               resume: bool = True, device="cuda") -> dict:
+    """Drive ``fn`` (default: ``sc.rx_chain_freq``) over an iterator of
+    argument tuples on ``device``; returns the frames and batches run.
+
+    Each element of ``batches`` is the argument tuple of ``fn``: host
+    tensors, numpy arrays or `Cplx` planes, batch first.  ``fn`` returns a
+    named tuple with the seven estimates (``h_lt`` … ``h_mmse``, complex
+    tensors or `Cplx`).  With ``out_dir``, writes ``h_est_{i:06d}.npz``
+    (complex64, one array per estimate) and ``cursor.json``; with
+    ``resume``, skips the batches the cursor holds.
+
+    Order per batch i: upload (pinned, non-blocking), dispatch ``fn``,
+    start the estimates' copy to pinned host memory, then fence and write
+    batch i − 1; the iterator makes batch i + 1 while batch i runs.  The
+    multi-chip ``mesh`` of the JAX package waits for ``parallel/``."""
+    fn = sc.rx_chain_freq if fn is None else fn
+    dev = torch.device(device)
+    sink = _Sink(out_dir, resume)
+    n_frames = n_batches = 0
+    pending = None
+    for i, host_args in enumerate(batches):
+        if sink.done(i):
+            continue
+        out = fn(*_upload(host_args, dev))
+        staged = _stage(out, dev, sink.dir is not None)
+        if pending is not None:
+            n_frames += _finish(pending, sink)
+            n_batches += 1
+        pending = (i, staged)
+    if pending is not None:
+        n_frames += _finish(pending, sink)
+        n_batches += 1
+    return {"frames": n_frames, "batches": n_batches, "out_dir": sink.path_str()}
+
+
+ENGINES = ("native", "torch")
+
+
+def synthetic_batches(n_batches: int, batch: int, seed: int = 0, snr_db: float = 40.0,
+                      engine: str = "torch"):
+    """Generator of frequency-domain argument tuples for ``sc.rx_chain_freq``:
+    (tx_pre (B, 53), rx_pre, tx_blocks (B, 15, 53), rx_blocks, ow2 (B,)),
+    CPU tensors, complex64 and float32.
+
+    ``engine="native"``: the multithreaded C++ data engine
+    (``datasets/native_engine.py``), frames seed-and-index deterministic;
+    ``"torch"``: ``datasets/synthetic.py`` on a CPU ``torch.Generator``
+    seeded with ``seed + i`` for batch i."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    for i in range(n_batches):
+        if engine == "native":
+            fb = native_engine.generate(batch, seed=seed, frame0=i * batch, snr_db=snr_db)
+        else:
+            fb = synthetic.generate(torch.Generator().manual_seed(seed + i), batch,
+                                    snr_db=snr_db)
+        yield fb.tx_preamble_fft, fb.rx_preamble_fft, fb.tx_symb, fb.rx_symb, fb.ow2
+
+
+def native_time_batches(n_batches: int, batch: int, seed: int = 0, snr_db: float = 40.0,
+                        threads: int = 0):
+    """Generator of time-domain argument tuples for the batch-major fused
+    chain (``kernels.fused_chain.fused_rx_chain``): (tx_pkt (B, 1200), rx_pkt,
+    tx_lp (B, 160), rx_lp) float32 `Cplx` CPU planes, made by the native
+    engine alone (no host-side Python math)."""
+    for i in range(n_batches):
+        _, tb = native_engine.generate(batch, seed=seed, frame0=i * batch, snr_db=snr_db,
+                                       threads=threads, time_domain=True)
+        yield tb.tx_pkt, tb.rx_pkt, tb.tx_lp, tb.rx_lp
+
+
+# -- the device-resident stream ---------------------------------------------------------------
 
 
 def kernel_seed(seed: int, i: int, state: torch.Tensor) -> torch.Tensor:
