@@ -74,7 +74,18 @@ nvcc per source, all started together), then:
    over ``synthetic_batches(engine="native")``, B=32768, 3 batches: shards
    written, batch 0's first 1024 frames against the CPU, a resume;
 13. runs ``native_time_batches`` into ``fused_rx_chain`` (per-frame tx) at
-   B=32768, a 1024-frame slice against the plain version.
+   B=32768, a 1024-frame slice against the plain version;
+14. runs the multi-device layer (``tpu80211_torch/parallel``): (a) a world
+   of one on NCCL in this process: ``rx_step_shardmap`` "sm" at B=65536 on
+   phase 3's frames against ``sc.rx_chain_freq``, "dense" (#8) at B=16384
+   (sigma^2 = 0.25) against "sm", both within 1e-4 (tests/test_mesh.py),
+   and the mesh ``kernel`` (#6) and ``kernel_raw`` (#7) stream steps at
+   B=32768 bit-equal to the steps without a mesh, each step timed beside
+   its single-process counterpart; (b) two ranks on the one card over gloo
+   (``parallel/launch.py``): the shard-map steps over dp=2 and dp=1 x blk=2,
+   "sm" and "dense", within 1e-4 of the world of one, the mesh stream steps
+   equal to the pool of the two ranks' single-process kernel calls, then
+   ``entry.dryrun_multichip(2)``.
 
 Kernels are timed through ``tpu80211_torch/utils/timing.py``.  Every failed check raises, so the script exits non-zero.  The last two
 lines are JSON: the kernel table (each kernel's launches on its path, max
@@ -105,6 +116,7 @@ from tpu80211_torch.kernels import gen_chain as G
 from tpu80211_torch.kernels import mmse_solve as MS
 from tpu80211_torch.kernels import raw_chain as R
 from tpu80211_torch.kernels import raw_gen_chain as RG
+from tpu80211_torch.ops.detect import lts_time_symbol
 from tpu80211_torch.pipeline import raw as P
 from tpu80211_torch.pipeline import rx as RXP
 from tpu80211_torch.pipeline import sc as SCP
@@ -1340,6 +1352,276 @@ def phase_native_fused(dev) -> tuple[int, float]:
     return launches, max_abs
 
 
+# -- the multi-device layer (phase 14) -------------------------------------------------------
+
+B_MESH = B_MAIN        # the sm step at the main path's batch
+B_MESH_DENSE = 16384   # the dense step: 16,384 frames x 15 blocks = 245,760 systems
+B_MESH_TWO = 16384     # the shard-map steps of the two-rank world
+OW2_DENSE = 0.25       # a well-conditioned sigma^2 for the dense f32 solve (tests/test_mesh.py:118-121)
+MESH_TOL = 1e-4        # tests/test_mesh.py:94-105: every estimate and eq, and the metric
+TWO_RANKS = "two ranks time-sliced on one card, gloo; not a scaling figure"
+
+
+def mesh_inputs(cap, dev, b: int) -> tuple:
+    """The first b of phase 3's capture-like frames in the frequency domain,
+    batch-major on the card: (tx_pre (b, 53), rx_pre, tx_blocks (b, 15, 53),
+    rx_blocks, ow2 (b,)); the tx side is the capture's, alike in every frame."""
+    rp, rl = (x[:, :b].T.contiguous() for x in main_inputs(cap, dev))
+    tx_blocks = SCP.extract_blocks(torch.tensor(cap.tx_packet, dtype=torch.complex64, device=dev))
+    tx_pre = SCP.preamble_fft(torch.tensor(cap.tx_lptot, dtype=torch.complex64, device=dev))
+    return (tx_pre.expand(b, -1).contiguous(), SCP.preamble_fft(rl),
+            tx_blocks.expand(b, -1, -1).contiguous(), SCP.extract_blocks(rp), SCP.noise_power(rl))
+
+
+def check_rx(tag: str, out, mse, ref, blocks: slice = slice(0, 15)) -> float:
+    """Each estimate and eq (on ``blocks`` of the frame) within MESH_TOL of
+    ``ref`` (an RxOutputs), the metric within MESH_TOL of ``ref``'s mean
+    |h_mmse|^2; returns the largest relative error."""
+    worst = 0.0
+    for name in S._STREAM_ESTS:
+        worst = max(worst, rel(getattr(out, name), getattr(ref, name)))
+    nb = blocks.stop - blocks.start
+    worst = max(worst, rel(out.eq[:, :nb], ref.eq[:, blocks]))
+    want = float(ref.h_mmse.abs().double().square().mean())
+    check(worst <= MESH_TOL, f"{tag}: rel err {worst:.3g} > {MESH_TOL}")
+    check(abs(float(mse) - want) <= MESH_TOL * want, f"{tag}: metric {float(mse)} vs {want}")
+    return worst
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """Host ms a call to dispatch ``calls`` back-to-back calls (the card
+    synchronized before and after, outside the clock)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_mesh_one(cap, dev, tmp: pathlib.Path) -> dict:
+    """14a: a world of one on NCCL in this process, at full width: the sm
+    step at B=65536 against ``sc.rx_chain_freq``, the dense step (#8) at
+    B=16384 against sm, and the mesh ``kernel`` (#6) and ``kernel_raw`` (#7)
+    stream steps at B=32768 bit-equal to the steps without a mesh over two
+    chained batches; each timed beside its single-process counterpart (and
+    the stream steps' host dispatch, and one 9-float NCCL all-reduce).
+    Saves the world-of-one outputs at B=16384 for 14b.  Returns the
+    launches."""
+    from tpu80211_torch.parallel import mesh as PM
+    from tpu80211_torch.parallel import multihost
+
+    multihost.init_distributed(f"file://{tmp / 'store'}", 1, 0, device=dev)
+    try:
+        check(torch.distributed.get_backend() == "nccl", "the world of one is not on NCCL")
+        mesh = PM.make_mesh(device=dev)
+        args = mesh_inputs(cap, dev, B_MESH)
+        dense_args = tuple(x[:B_MESH_DENSE] for x in args[:4]) + (
+            torch.full((B_MESH_DENSE,), OW2_DENSE, device=dev),)
+        step_sm, _ = PM.rx_step_shardmap(mesh)
+        step_dense, _ = PM.rx_step_shardmap(mesh, solver="dense")
+        steps = {gen: S.make_device_stream_step(B_GEN, seed=GEN_SEED, snr_db=STREAM_SNR[gen],
+                                                gen=gen, mesh=mesh, device=dev)
+                 for gen in S.MESH_GENERATORS}
+        torch.cuda.synchronize()
+        G.launches = RG.launches = MS.launches = 0
+        out, mse = step_sm(*args)
+        out_d, mse_d = step_dense(*dense_args)
+        mesh_runs = {}
+        for gen, (step, state) in steps.items():
+            runs = []
+            for i in range(2):
+                summary, sample, state = step(i, state)
+                runs.append((summary, sample, state))
+            mesh_runs[gen] = runs
+        torch.cuda.synchronize()
+        launches = {"gen_chain": G.launches, "raw_gen_chain": RG.launches,
+                    "mmse_solve": MS.launches}
+        for k, n in launches.items():
+            check(n > 0, f"phase 14a launched no {k} kernel")
+
+        err_sm = check_rx(f"sm step B={B_MESH}", out, mse, SCP.rx_chain_freq(*args))
+        out_s, mse_s = step_sm(*dense_args)
+        err_d = rel(out_d.h_mmse, out_s.h_mmse)
+        check(err_d <= MESH_TOL, f"dense step: h_mmse rel err {err_d:.3g} against sm")
+        check(abs(float(mse_d) - float(mse_s)) <= MESH_TOL * float(mse_s), "dense step: metric")
+        for gen, runs in mesh_runs.items():
+            step, state = S.make_device_stream_step(B_GEN, seed=GEN_SEED, snr_db=STREAM_SNR[gen],
+                                                    gen=gen, device=dev)
+            for i, (msum, msample, mstate) in enumerate(runs):
+                summary, sample, state = step(i, state)
+                for k, v in msum.items():
+                    check(torch.equal(v, summary[k]), f"mesh {gen} step {i}: {k} differs")
+                check(torch.equal(msample.re, sample.re) and torch.equal(msample.im, sample.im),
+                      f"mesh {gen} step {i}: sample differs")
+                check(torch.equal(mstate, state), f"mesh {gen} step {i}: next state differs")
+
+        t = {"sm": in_turns(lambda: step_sm(*args), lambda: SCP.rx_chain_freq(*args)),
+             "dense": in_turns(lambda: step_dense(*dense_args), lambda: step_sm(*dense_args))}
+        host = {}
+        for gen, (mstep, m0) in steps.items():
+            sstep, s0 = S.make_device_stream_step(B_GEN, seed=GEN_SEED, snr_db=STREAM_SNR[gen],
+                                                  gen=gen, device=dev)
+            t[gen] = in_turns(lambda: mstep(0, m0), lambda: sstep(0, s0))
+            host[gen] = (host_ms(lambda: mstep(0, m0)), host_ms(lambda: sstep(0, s0)))
+        # what one collective of the mesh stream step costs: 9 floats over NCCL
+        small, dp_group = torch.zeros(9, device=dev), PM.axis(mesh, PM.DP)[2]
+        t["all_reduce"] = time_ms(lambda: PM.all_reduce(small, dp_group))
+        host["all_reduce"] = host_ms(lambda: PM.all_reduce(small, dp_group))
+        print(f"phase 14a: {card()}; world of one, NCCL")
+        print(f"phase 14a: rx_step_shardmap sm B={B_MESH}: {t['sm'][0]:.4f} ms; "
+              f"sc.rx_chain_freq {t['sm'][1]:.4f} ms")
+        print(f"phase 14a: rx_step_shardmap dense B={B_MESH_DENSE} ({B_MESH_DENSE * 15} systems): "
+              f"{t['dense'][0]:.4f} ms; the sm step {t['dense'][1]:.4f} ms")
+        for gen in S.MESH_GENERATORS:
+            print(f"phase 14a: mesh stream step {gen} B={B_GEN}: {t[gen][0]:.4f} ms; "
+                  f"without a mesh {t[gen][1]:.4f} ms; host dispatch a call "
+                  f"{host[gen][0]:.4f} ms, without a mesh {host[gen][1]:.4f} ms")
+        print(f"phase 14a: NCCL all_reduce of 9 floats: {t['all_reduce']:.4f} ms on events, "
+              f"{host['all_reduce']:.4f} ms of host dispatch a call")
+
+        # 14b's reference: the world of one at B_MESH_TWO, both solvers
+        two = tuple(x[:B_MESH_TWO] for x in args)
+        ref = {}
+        for solver, a in (("sm", two), ("dense", two[:4] + (torch.full_like(two[4], OW2_DENSE),))):
+            o, m = (step_sm if solver == "sm" else step_dense)(*a)
+            ref[solver] = ({k: getattr(o, k).cpu() for k in (*S._STREAM_ESTS, "eq")}, float(m))
+        torch.save(ref, tmp / "world_of_one.pt")
+        torch.cuda.synchronize()
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"phase 14a ok: world of one on NCCL: sm step B={B_MESH} == sc.rx_chain_freq (rel err "
+          f"{err_sm:.3g}), dense step B={B_MESH_DENSE} == sm (rel err {err_d:.3g}), mesh kernel "
+          f"and kernel_raw steps B={B_GEN} bit-equal to the steps without a mesh; launches {launches}")
+    return launches
+
+
+def mesh_two_rank(ref_path: str) -> dict:
+    """14b, on each rank of a two-rank gloo world on one card: the shard-map
+    steps over dp=2 and over dp=1 x blk=2, with sm and dense, against the
+    world of one (MESH_TOL); the mesh kernel and kernel_raw steps at
+    B=32768 against the pool of two single-process kernel calls with the
+    ranks' seeds (rank 0 makes them: the same sums, the same f32 order);
+    step times.  Returns this rank's launches and times, and rank 0's
+    stream summaries."""
+    from tpu80211_torch.parallel import mesh as PM
+    from tpu80211_torch.parallel import multihost
+
+    dev = multihost.rank_device("cuda")
+    rank = torch.distributed.get_rank()
+    cap = load_capture()
+    ref = torch.load(ref_path)
+    full = mesh_inputs(cap, dev, B_MESH_TWO)
+    meshes = {(dp, blk): PM.make_mesh(dp=dp, blk=blk, device="cuda") for dp, blk in ((2, 1), (1, 2))}
+    streams = {gen: S.make_device_stream_step(B_GEN, seed=GEN_SEED, snr_db=STREAM_SNR[gen],
+                                              gen=gen, mesh=meshes[2, 1], device=dev)
+               for gen in S.MESH_GENERATORS}
+    torch.cuda.synchronize()
+    G.launches = RG.launches = MS.launches = 0
+    res, calls = {"times": {}}, {}
+    for (dp, blk), mesh in meshes.items():
+        blk_rank = PM.axis(mesh, PM.BLK)[1]
+        for solver in PM.SOLVERS:
+            step, nb_pad = PM.rx_step_shardmap(mesh, solver=solver)
+            ow2 = full[4] if solver == "sm" else torch.full_like(full[4], OW2_DENSE)
+            pre = PM.shard_batch(mesh, (full[0], full[1], ow2), dev)
+            blocks = PM.shard_blocks(mesh, tuple(PM.pad_blocks(x, blk)[:, :nb_pad]
+                                                 for x in full[2:4]), dev)
+            args = (pre[0], pre[1], *blocks, pre[2])
+            calls[dp, blk, solver] = (step, args, PM.frame_sharding(mesh, B_MESH_TWO),
+                                      blk_rank * (nb_pad // blk), step(*args))
+    for gen, (step, state) in streams.items():
+        calls[gen] = step(0, state)
+    torch.cuda.synchronize()
+    res["launches"] = {"gen_chain": G.launches, "raw_gen_chain": RG.launches,
+                       "mmse_solve": MS.launches}
+
+    for key, value in calls.items():
+        if key in S.MESH_GENERATORS:
+            continue
+        step, args, rows, b0, (out, mse) = value
+        want, want_mse = ref[key[2]]
+        b1 = min(b0 + out.eq.shape[1], 15)
+        err = max(max(rel(getattr(out, k), want[k][rows].to(dev)) for k in S._STREAM_ESTS),
+                  rel(out.eq[:, :b1 - b0], want["eq"][rows, b0:b1].to(dev)))
+        check(err <= MESH_TOL, f"two ranks {key}: rel err {err:.3g} against the world of one")
+        check(abs(float(mse) - want_mse) <= MESH_TOL * want_mse, f"two ranks {key}: metric")
+        res["times"][key] = time_ms(lambda: step(*args))
+    for gen in S.MESH_GENERATORS:
+        summary, _, state = calls[gen]
+        if rank == 0:
+            want, want_state = pooled_stream(gen, cap, dev)
+            check(set(summary) == set(want), f"two ranks {gen}: keys {sorted(summary)}")
+            for k, v in want.items():
+                check(torch.equal(summary[k], v), f"two ranks {gen}: {k} {float(summary[k])} "
+                      f"!= the pooled {float(v)}")
+            check(torch.equal(state, want_state), f"two ranks {gen}: next state")
+            res[gen] = {k: float(v) for k, v in summary.items()}
+        step, state0 = streams[gen]
+        res["times"][gen] = time_ms(lambda: step(0, state0))
+    torch.cuda.synchronize()
+    return res
+
+
+def pooled_stream(gen: str, cap, dev, ranks: int = 2) -> tuple[dict, torch.Tensor]:
+    """The summary and next state that the mesh stream step ``gen`` over
+    ``ranks`` dp ranks at B=32768 must give: each rank's B/ranks frames
+    received in this process with that rank's seed, their sums added in
+    rank order in f32 (as the all-reduce adds them), then the step's
+    formulas (C3's EVM for kernel_raw)."""
+    txc = F.tx_spectra(planes(cap.tx_packet, torch.float32, dev),
+                       planes(cap.tx_lptot, torch.float32, dev))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    pooled = None
+    for r in range(ranks):
+        seed = S.kernel_seed(GEN_SEED, 0, zero, r)
+        if gen == "kernel":
+            out = G.fused_gen_chain(seed, B_GEN // ranks, *txc, snr_db=STREAM_SNR[gen],
+                                    stream_sums=True)
+            pack = out["sums"].sum(-1)
+        else:
+            lts = planes(lts_time_symbol(cap.tx_lptot).numpy(), torch.float32, dev)
+            out = RG.gen_raw_system(seed, B_GEN // ranks, *txc, lts, snr_db=STREAM_SNR[gen])
+            pack = S._raw_pack(out, out["offsets"])
+        pack = torch.cat([pack, out["checksum"].sum()[None]])
+        pooled = pack if pooled is None else pooled + pack
+    s = pooled[:-1]
+    if gen == "kernel":
+        want = {n + "_nmse": s[k] / s[-1] for k, n in enumerate(S._STREAM_ESTS)}
+    else:
+        evm_den = float((txc.txs.re[:, :15].double() ** 2 + txc.txs.im[:, :15].double() ** 2).sum())
+        want = S._raw_rates(s, B_GEN, evm_den)
+    return want, S._state_of(pooled[-1])
+
+
+def phase_mesh_two(tmp: pathlib.Path) -> dict:
+    """14b: ``mesh_two_rank`` in a two-rank gloo world on the one card
+    (``parallel/launch.py``), then ``dryrun_multichip(2)`` on the card.
+    Returns rank 0's launches."""
+    from tpu80211_torch import entry
+    from tpu80211_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    res = launch.launch(mesh_two_rank, 2, str(tmp / "world_of_one.pt"), device="cuda",
+                        backend="gloo")
+    wall = time.perf_counter() - t0
+    for k, n in res["launches"].items():
+        check(n > 0, f"phase 14b launched no {k} kernel on rank 0")
+    for key, ms in res["times"].items():
+        what = (f"rx_step_shardmap {key[2]} dp={key[0]} blk={key[1]} B={B_MESH_TWO}"
+                if isinstance(key, tuple) else f"mesh stream step {key} B={B_GEN} (dp=2)")
+        print(f"phase 14b: {what}: {ms:.4f} ms ({TWO_RANKS})")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(2)
+    print(f"phase 14b ok: two-rank gloo world ({wall:.1f} s): shard-map steps (dp=2; dp=1 x blk=2; "
+          f"sm, dense) == the world of one; mesh kernel {res['kernel']} and kernel_raw "
+          f"{res['kernel_raw']} == the pool of the ranks' single-process calls; "
+          f"dryrun_multichip(2) on the card in {time.perf_counter() - t0:.1f} s; rank 0 launches "
+          f"{res['launches']}")
+    return res["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1368,6 +1650,11 @@ def main() -> int:
     phase_bench(dev)
     phase_host_stream(dev)
     phase_native_fused(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_launches = [phase_mesh_one(cap, dev, pathlib.Path(tmp)), phase_mesh_two(pathlib.Path(tmp))]
+    for k in ("gen_chain", "raw_gen_chain"):
+        gen_launches[k] += sum(m[k] for m in mesh_launches)
+    solve_launches["mmse_solve"] += sum(m["mmse_solve"] for m in mesh_launches)
     lower = bounds(main_in, raw_in, gen_in, dev)
     # the solve rows at the main path's shape and method (gauss, the
     # default of sc.ps_mmse_dense and of the dense_pallas solver); the bound

@@ -85,6 +85,21 @@ def jax_planes(x: np.ndarray, dtype=None):
                  jnp.asarray(np.ascontiguousarray(x.imag), jnp.float32).astype(dtype))
 
 
+def jax_freq_batch(seed: int = 7, b: int = 16) -> dict:
+    """The JAX mesh tests' frequency-domain frames (``tpu80211.datasets.
+    synthetic.generate`` at PRNGKey(seed)) as writable numpy arrays: tx_pre,
+    rx_pre (b, 53), txb, rxb (b, 15, 53) complex64, ow2 (b,) float32."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpu80211.datasets import synthetic
+
+    fb = synthetic.generate(jax.random.PRNGKey(seed), batch=b, dtype=jnp.complex64)
+    return {"tx_pre": np.array(fb.tx_preamble_fft), "rx_pre": np.array(fb.rx_preamble_fft),
+            "txb": np.array(fb.tx_symb), "rxb": np.array(fb.rx_symb),
+            "ow2": np.array(fb.ow2, np.float32)}
+
+
 def torch_planes(x: np.ndarray, dtype=torch.float32) -> Cplx:
     return Cplx(torch.tensor(np.ascontiguousarray(x.real), dtype=torch.float32).to(dtype),
                 torch.tensor(np.ascontiguousarray(x.imag), dtype=torch.float32).to(dtype))

@@ -21,7 +21,10 @@ from tpu80211_torch.kernels import gen_chain as G
 from tpu80211_torch.kernels import mmse_solve as M
 from tpu80211_torch.kernels import raw_chain as R
 from tpu80211_torch.kernels import raw_gen_chain as RG
+from tpu80211_torch.datasets import synthetic
 from tpu80211_torch.models import ps_mmse
+from tpu80211_torch.parallel import mesh as PM
+from tpu80211_torch.parallel import multihost
 from tpu80211_torch.ops import channel
 from tpu80211_torch.pipeline import raw as P
 from tpu80211_torch.pipeline import rx as RX
@@ -1066,3 +1069,63 @@ def test_timeit_times_with_events(dev):
     s = timing.timeit(torch.mm, a, a, iters=5, device=dev)
     assert 0 < s < 1.0
     assert timing.time_ms(lambda: torch.mm(a, a), calls=2, reps=2) > 0
+
+
+# -- the multi-device layer: a world of one on NCCL --------------------------------------------
+
+
+@pytest.fixture
+def nccl_one(dev, tmp_path):
+    """A world of one on NCCL in this process, its (dp, blk) = (1, 1) mesh."""
+    multihost.init_distributed(f"file://{tmp_path / 'store'}", 1, 0, device=dev)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        yield PM.make_mesh(device=dev)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_shardmap_steps_on_card(nccl_one, dev):
+    """The sm step equals ``sc.rx_chain_freq`` on the card within 1e-4
+    (tests/test_mesh.py:94-105); the dense step launches the fused solve
+    kernel (#8) once and equals sm at σ² = 0.25 within 1e-4."""
+    fb = synthetic.generate(torch.Generator().manual_seed(3), 2048)
+    args = tuple(x.to(dev) for x in (fb.tx_preamble_fft, fb.rx_preamble_fft, fb.tx_symb,
+                                     fb.rx_symb, fb.ow2))
+    step, nb_pad = PM.rx_step_shardmap(nccl_one)
+    assert nb_pad == 15
+    out, mse = step(*args)
+    ref = SCH.rx_chain_freq(*args)
+    for name in (*F.OUT_NAMES, "eq"):
+        assert rel(to_np(getattr(out, name)), to_np(getattr(ref, name))) < 1e-4, name
+    assert float(mse) == pytest.approx(float(ref.h_mmse.abs().square().mean()), rel=1e-4)
+    dense_args = args[:4] + (torch.full_like(args[4], 0.25),)
+    dense, _ = PM.rx_step_shardmap(nccl_one, solver="dense")
+    before = M.launches
+    out_d, mse_d = dense(*dense_args)
+    torch.cuda.synchronize()
+    assert M.launches == before + 1
+    out_s, mse_s = step(*dense_args)
+    assert rel(to_np(out_d.h_mmse), to_np(out_s.h_mmse)) < 1e-4
+    assert float(mse_d) == pytest.approx(float(mse_s), rel=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen", S.MESH_GENERATORS)
+def test_mesh_stream_step_on_card_is_the_single_chip_step(gen, nccl_one, dev):
+    """At dp = 1 on NCCL the mesh step launches its kernel and equals the
+    step without a mesh bit for bit over two chained batches."""
+    kw = dict(snr_db=30.0, gen=gen, device=dev)
+    mstep, m0 = S.make_device_stream_step(GEN_B, mesh=nccl_one, **kw)
+    step, s0 = S.make_device_stream_step(GEN_B, **kw)
+    before = (G.launches, RG.launches)
+    for i in range(2):
+        msum, msample, m0 = mstep(i, m0)
+        ssum, ssample, s0 = step(i, s0)
+        torch.cuda.synchronize()
+        for k, v in msum.items():
+            assert torch.equal(v, ssum[k]), (i, k)
+        assert torch.equal(msample.re, ssample.re) and torch.equal(m0, s0)
+    assert (G.launches, RG.launches) == (before[0] + 4 * (gen == "kernel"),
+                                         before[1] + 4 * (gen == "kernel_raw"))

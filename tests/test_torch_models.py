@@ -71,13 +71,12 @@ def well_conditioned():
 
 
 def test_config_matches_jax():
-    """Same fields, defaults and estimator names but for the mesh shape,
-    which the port does not have yet: one configuration means the same in
-    both packages."""
+    """Same fields (the mesh shape included), defaults and estimator names:
+    one configuration means the same in both packages."""
     got = {f.name: f.default for f in dataclasses.fields(config.Config)}
-    want = {f.name: f.default for f in dataclasses.fields(jconfig.Config)
-            if f.name not in ("dp", "blk")}
+    want = {f.name: f.default for f in dataclasses.fields(jconfig.Config)}
     assert list(got) == list(want)
+    assert config.Config().mesh_shape() == jconfig.Config().mesh_shape() == {"dp": 1, "blk": 1}
     for name, value in want.items():
         g = got[name]
         assert (g.value if isinstance(g, EstimatorMode) else g) == \

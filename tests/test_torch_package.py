@@ -31,7 +31,10 @@ def test_package_imports_no_jax():
             "tpu80211_torch.models", "tpu80211_torch.models.lt_ls",
             "tpu80211_torch.models.ps_interp", "tpu80211_torch.models.ps_mmse",
             "tpu80211_torch.pipeline.rx", "tpu80211_torch.ops.linalg",
-            "tpu80211_torch.ops.blocks", "tpu80211_torch.ops.equalize"} <= set(mods)
+            "tpu80211_torch.ops.blocks", "tpu80211_torch.ops.equalize",
+            "tpu80211_torch.parallel", "tpu80211_torch.parallel.mesh",
+            "tpu80211_torch.parallel.multihost", "tpu80211_torch.parallel.launch",
+            "tpu80211_torch.bench.scaling", "tpu80211_torch.entry"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpu80211.')))\n"
@@ -68,6 +71,15 @@ def test_package_exports():
     assert (rx.__name__, sc.__name__) == ("tpu80211_torch.pipeline.rx", "tpu80211_torch.pipeline.sc")
     with pytest.raises(AttributeError):
         ops.no_such_name  # noqa: B018
+
+
+def test_parallel_exports_the_names_of_the_reference():
+    """``tpu80211_torch.parallel`` exports what ``tpu80211.parallel`` does."""
+    from tpu80211 import parallel as jparallel
+    from tpu80211_torch import parallel
+
+    assert parallel.__all__ == jparallel.__all__
+    assert all(hasattr(parallel, name) for name in parallel.__all__)
 
 
 @pytest.mark.parametrize("name", jops.__all__)
@@ -157,9 +169,10 @@ def test_entry_points_default_to_the_card():
     names another; the others follow their inputs' device."""
     import inspect
 
-    from tpu80211_torch import convert
-    from tpu80211_torch.bench import quality, throughput
+    from tpu80211_torch import convert, entry
+    from tpu80211_torch.bench import quality, scaling, throughput
     from tpu80211_torch.kernels import gen_chain, raw_gen_chain
+    from tpu80211_torch.parallel import launch, mesh, multihost
     from tpu80211_torch.pipeline import stream
     from tpu80211_torch.utils import timing
 
@@ -167,5 +180,7 @@ def test_entry_points_default_to_the_card():
                stream.make_device_stream_step, stream.run_stream_device, gen_chain.gen_draws,
                raw_gen_chain.raw_draws, stream.run_stream, quality.quality_point,
                quality.quality_sweep, quality.quality_point_fused, quality.quality_sweep_fused,
-               throughput.run_row, throughput.run, timing.timeit):
+               throughput.run_row, throughput.run, timing.timeit, mesh.make_mesh,
+               multihost.init_distributed, multihost.hierarchical_mesh, multihost.rank_device,
+               launch.launch, scaling.sweep, entry.entry, entry.dryrun_multichip):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__

@@ -37,8 +37,9 @@ ESTIMATOR_NAMES = (
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """One run's settings, field for field those of ``tpu80211.config.Config``
-    but for its mesh shape (``dp``, ``blk``): the port has no mesh yet.
+    """One run's settings, field for field those of ``tpu80211.config.Config``.
+    The mesh shape (``dp`` frame shards, ``blk`` block shards) is that of
+    ``parallel.make_mesh``: there, one process per device.
 
     ``mmse_solver="dense_pallas"`` names the solver backed by the
     hand-written solve kernel (``kernels/mmse_solve.py``); the name is the
@@ -60,5 +61,12 @@ class Config:
     # through the hand-written solve kernel)
     mmse_solver: str = "sm"
 
+    # mesh: number of data-parallel shards over frames, and over OFDM blocks
+    dp: int = 1
+    blk: int = 1
+
     # number of blocks averaged into pilot-based estimates
     avg_blocks: int = 4
+
+    def mesh_shape(self):
+        return {"dp": self.dp, "blk": self.blk}

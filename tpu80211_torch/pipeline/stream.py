@@ -37,8 +37,16 @@ bit-deterministic: the state after every batch is persisted in
 ``cursor.json``.
 
 Where the JAX package clamps the detected count to 1, a batch with no
-detection here reports ``evm_rms`` NaN, not a perfect 0.  The multi-chip
-(``mesh``) step and ``run_stream``'s ``mesh`` are not ported yet.
+detection here reports ``evm_rms`` NaN, not a perfect 0.
+
+**On a mesh** (``parallel/``, one process per device): the ``kernel`` and
+``kernel_raw`` steps run batch / dp frames on each rank and pool their
+summaries with one all-reduce over dp; ``kernel_raw`` pools the EVM over
+the detected streams of every rank, where the JAX mesh step divides the
+sum over all streams by the batch.  ``run_stream`` runs each rank's dp
+slice of every host batch and writes that rank's rows to shards and a
+cursor of its own (``.rank{r}`` before the suffix): a multi-process JAX job
+cannot gather its sharded outputs into one file either.
 """
 
 from __future__ import annotations
@@ -50,9 +58,10 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpu80211_torch import constants as C
-from tpu80211_torch.cplx import Cplx
+from tpu80211_torch.cplx import Cplx, tree_map
 from tpu80211_torch.datasets import native_engine, synthetic, synthetic_sc
 from tpu80211_torch.datasets.loader import load_capture
 from tpu80211_torch.kernels import fused_chain as F
@@ -60,25 +69,30 @@ from tpu80211_torch.kernels import gen_chain as G
 from tpu80211_torch.kernels import raw_chain as R
 from tpu80211_torch.kernels import raw_gen_chain as RG
 from tpu80211_torch.ops.detect import lts_time_symbol
+from tpu80211_torch.parallel import mesh as M
 from tpu80211_torch.pipeline import sc
 
 _STREAM_ESTS = F.OUT_NAMES
 GENERATORS = ("kernel", "xla", "raw", "kernel_raw")
+MESH_GENERATORS = ("kernel", "kernel_raw")
 _SEED_MIX = 2654435761 % 2 ** 31   # the JAX step's state multiplier
 _BATCH_MIX = 65537                 # and its batch-index multiplier
+_RANK_MIX = 97003                  # and its dp-rank multiplier
 
 
 class _Sink:
     """Per-batch records under ``out_dir`` and the resume cursor: the
-    batches done, and the carried state after each of them."""
+    batches done, and the carried state after each of them.  ``tag`` goes
+    before each file's suffix (one rank's files of a mesh run)."""
 
-    def __init__(self, out_dir, resume):
+    def __init__(self, out_dir, resume, tag: str = ""):
         self.dir = pathlib.Path(out_dir) if out_dir else None
+        self.tag = tag
         self.cursor = set()
         self.states: dict[str, int] = {}
         if self.dir:
             self.dir.mkdir(parents=True, exist_ok=True)
-            cur = self.dir / "cursor.json"
+            cur = self.dir / f"cursor{tag}.json"
             if resume and cur.exists():
                 rec = json.loads(cur.read_text())
                 self.cursor = set(rec["done"])
@@ -93,7 +107,7 @@ class _Sink:
         return self.states.get(str(i))
 
     def _write_cursor(self) -> None:
-        (self.dir / "cursor.json").write_text(
+        (self.dir / f"cursor{self.tag}.json").write_text(
             json.dumps({"done": sorted(self.cursor), "states": self.states}))
 
     def write(self, i: int, arrs: dict) -> None:
@@ -101,7 +115,7 @@ class _Sink:
         the cursor."""
         if not self.dir:
             return
-        np.savez_compressed(self.dir / f"h_est_{i:06d}.npz", **arrs)
+        np.savez_compressed(self.dir / f"h_est_{i:06d}{self.tag}.npz", **arrs)
         self.cursor.add(i)
         self._write_cursor()
 
@@ -112,26 +126,12 @@ class _Sink:
 # -- the host stream --------------------------------------------------------------------------
 
 
-def _tree_map(fn, x):
-    """``fn`` on every tensor of a tensor, a `Cplx`, or tuples and lists of
-    them (numpy arrays become tensors first)."""
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(x)
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_tree_map(fn, v) for v in x))
-    if isinstance(x, (tuple, list)):
-        return type(x)(_tree_map(fn, v) for v in x)
-    return x
-
-
 def _upload(host_args, dev: torch.device):
     """The batch's arguments on ``dev``: on a card, each tensor is copied
     into pinned host memory and uploaded without blocking the host."""
     if dev.type == "cuda":
-        return _tree_map(lambda t: t.pin_memory().to(dev, non_blocking=True), host_args)
-    return _tree_map(lambda t: t.to(dev), host_args)
+        return tree_map(lambda t: t.pin_memory().to(dev, non_blocking=True), host_args)
+    return tree_map(lambda t: t.to(dev), host_args)
 
 
 def _stage(out, dev: torch.device, keep: bool):
@@ -168,8 +168,8 @@ def _finish(pending, sink: _Sink) -> int:
     return frames
 
 
-def run_stream(batches: Iterable, fn: Callable | None = None, out_dir: str | None = None,
-               resume: bool = True, device="cuda") -> dict:
+def run_stream(batches: Iterable, fn: Callable | None = None, mesh=None,
+               out_dir: str | None = None, resume: bool = True, device="cuda") -> dict:
     """Drive ``fn`` (default: ``sc.rx_chain_freq``) over an iterator of
     argument tuples on ``device``; returns the frames and batches run.
 
@@ -182,16 +182,22 @@ def run_stream(batches: Iterable, fn: Callable | None = None, out_dir: str | Non
 
     Order per batch i: upload (pinned, non-blocking), dispatch ``fn``,
     start the estimates' copy to pinned host memory, then fence and write
-    batch i − 1; the iterator makes batch i + 1 while batch i runs.  The
-    multi-chip ``mesh`` of the JAX package waits for ``parallel/``."""
+    batch i − 1; the iterator makes batch i + 1 while batch i runs.
+
+    ``mesh``: a ('dp', …) `parallel.make_mesh` mesh; every rank of its
+    world iterates the same batches and runs its dp rows of each
+    (``parallel.shard_batch``), writing ``h_est_{i:06d}.rank{r}.npz`` and
+    ``cursor.rank{r}.json``; the counts returned are this rank's."""
     fn = sc.rx_chain_freq if fn is None else fn
     dev = torch.device(device)
-    sink = _Sink(out_dir, resume)
+    sink = _Sink(out_dir, resume, "" if mesh is None else f".rank{dist.get_rank()}")
     n_frames = n_batches = 0
     pending = None
     for i, host_args in enumerate(batches):
         if sink.done(i):
             continue
+        if mesh is not None:
+            host_args = M.shard_batch(mesh, host_args, "cpu")
         out = fn(*_upload(host_args, dev))
         staged = _stage(out, dev, sink.dir is not None)
         if pending is not None:
@@ -243,46 +249,66 @@ def native_time_batches(n_batches: int, batch: int, seed: int = 0, snr_db: float
 # -- the device-resident stream ---------------------------------------------------------------
 
 
-def kernel_seed(seed: int, i: int, state: torch.Tensor) -> torch.Tensor:
-    """int32(seed + 65537·i) + state·(2654435761 mod 2³¹), wrapped to int32
-    on ``state``'s device: the kernel generators' seed for batch ``i``."""
+def kernel_seed(seed: int, i: int, state: torch.Tensor, rank: int = 0) -> torch.Tensor:
+    """int32(seed + 65537·i) + state·(2654435761 mod 2³¹) + rank·97003,
+    wrapped to int32 on ``state``'s device: the kernel generators' seed for
+    batch ``i`` on dp rank ``rank`` (0 without a mesh)."""
     base = G.wrap_i32(seed + i * _BATCH_MIX)
-    return G.wrap_i32(base + state.to(torch.int64) * _SEED_MIX).to(torch.int32)
+    return G.wrap_i32(base + state.to(torch.int64) * _SEED_MIX
+                      + rank * _RANK_MIX).to(torch.int32)
 
 
 def next_state(checksum: torch.Tensor) -> torch.Tensor:
     """The carried state after a batch: int32(mod(|Σ checksum|·1e3, 65536)),
     in float32 on the device."""
-    return torch.remainder(checksum.sum().abs() * 1e3, 65536.0).to(torch.int32)
+    return _state_of(checksum.sum())
+
+
+def _state_of(total: torch.Tensor) -> torch.Tensor:
+    """`next_state` from the checksum's sum (a 0-d float32 tensor)."""
+    return torch.remainder(total.abs() * 1e3, 65536.0).to(torch.int32)
 
 
 def _stream_generator(seed: int, i: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((seed + i * _BATCH_MIX) % 2 ** 64)
 
 
+def _raw_pack(out: dict, offsets: torch.Tensor) -> torch.Tensor:
+    """A raw batch's counts and sums, (3,) float32: [detected streams,
+    streams timed within [−4, −2], Σ evm_sums over the detected streams].
+    Packs of several batches add up to the pack of their union."""
+    det = out["detected"]
+    err = out["start"] - offsets
+    in_band = (err >= -4) & (err <= -2)
+    return torch.stack([det.to(torch.float32).sum(), in_band.to(torch.float32).sum(),
+                        torch.where(det, out["evm_sums"], 0.0).sum()])
+
+
+def _raw_rates(packed: torch.Tensor, n: int, evm_den: float) -> dict:
+    """Detection and timing rates of ``n`` streams from their `_raw_pack`,
+    and the EVM over the detected streams (NaN when none is)."""
+    return {
+        "detect_rate": packed[0] / n,
+        "timing_in_band_rate": packed[1] / n,
+        "evm_rms": torch.sqrt(packed[2] / (packed[0] * evm_den)),
+    }
+
+
 def _raw_summary(out: dict, offsets: torch.Tensor, h: Cplx, evm_den: float) -> dict:
     """Detection and timing rates, the EVM over detected streams (NaN when
     none is detected), and the magnitude NMSE of h_mmse (invariant to the
     early-extraction phase ramp, which only rotates each bin)."""
-    det = out["detected"]
-    err = out["start"] - offsets
-    in_band = (err >= -4) & (err <= -2)
-    evm2 = (torch.where(det, out["evm_sums"], 0.0).sum()
-            / (det.to(torch.float32).sum() * evm_den))
+    summary = _raw_rates(_raw_pack(out, offsets), out["detected"].numel(), evm_den)
     hm = out["h_mmse"]
     mag_e = torch.sqrt(hm.re * hm.re + hm.im * hm.im)
     mag_t = torch.sqrt(h.re * h.re + h.im * h.im)
-    return {
-        "detect_rate": det.to(torch.float32).mean(),
-        "timing_in_band_rate": in_band.to(torch.float32).mean(),
-        "evm_rms": torch.sqrt(evm2),
-        "h_mmse_mag_nmse": ((mag_e - mag_t) ** 2).sum() / (mag_t * mag_t).sum(),
-    }
+    summary["h_mmse_mag_nmse"] = ((mag_e - mag_t) ** 2).sum() / (mag_t * mag_t).sum()
+    return summary
 
 
 def make_device_stream_step(batch: int, seed: int = 0, snr_db: float = 20.0, dtype=None,
                             sample: int = 128, sync: bool = False, gen: str = "kernel",
-                            channel_model: str | None = None, device="cuda"):
+                            channel_model: str | None = None, mesh=None, device="cuda"):
     """Build the device-resident streamed step on ``device``.
 
     Returns ``(step, state0)``: ``step(i, state) -> (summary, sample_h,
@@ -293,9 +319,23 @@ def make_device_stream_step(batch: int, seed: int = 0, snr_db: float = 20.0, dty
     ``sample_h``: the MMSE estimates of ``sample`` frames (the first of
     the batch; with ``kernel``, of the last 128 frames).  ``dtype`` (bf16 by
     default) is the sample storage and, with ``kernel``, eq's type.
-    ``sync`` runs the chain's CFO/CPE stages (``xla`` only)."""
+    ``sync`` runs the chain's CFO/CPE stages (``xla`` only).
+
+    ``mesh``: a ('dp', …) `parallel.make_mesh` mesh, to run the stream on
+    every rank of its world (generators ``kernel`` and ``kernel_raw``):
+    each dp rank draws and receives batch / dp frames with its own seed
+    (`kernel_seed` with its rank), and one all-reduce over dp carries the
+    summaries' sums and the checksum's, so every rank gets the same
+    summary and the same next state.  ``kernel_raw``'s summary is then
+    ``detect_rate``, ``timing_in_band_rate`` and ``evm_rms``, the EVM pooled
+    over the detected streams of every rank.  ``sample_h`` holds this
+    rank's own frames (no gather).  At dp = 1 the step equals the step
+    without a mesh, bit for bit."""
     if gen not in GENERATORS:
         raise ValueError(f"gen must be one of {GENERATORS}, got {gen!r}")
+    if mesh is not None and gen not in MESH_GENERATORS:
+        raise ValueError(f"a mesh stream needs an in-kernel generator {MESH_GENERATORS}, "
+                         f"got {gen!r}")
     dtype = torch.bfloat16 if dtype is None else dtype
     if batch % G.LANES or batch < G.LANES:
         raise ValueError(f"batch must be a positive multiple of {G.LANES}, got {batch}")
@@ -308,11 +348,16 @@ def make_device_stream_step(batch: int, seed: int = 0, snr_db: float = 20.0, dty
                       for v in (x.real, x.imag)))
 
     txs, tpre = F.tx_spectra(planes(cap.tx_packet), planes(cap.tx_lptot))
+    lts = evm_den = None
     if gen in ("raw", "kernel_raw"):
         lts = planes(lts_time_symbol(cap.tx_lptot).numpy())
         # EVM denominator Σ|tx|² over the blocks' bins: a problem constant
         evm_den = float((txs.re[:, :C.N_BLOCKS].double() ** 2
                          + txs.im[:, :C.N_BLOCKS].double() ** 2).sum())
+    state0 = torch.zeros((), dtype=torch.int32, device=dev)
+    if mesh is not None:
+        return _mesh_step(mesh, batch, seed, snr_db, dtype, sample, gen, channel_model,
+                          txs, tpre, lts, evm_den), state0
 
     def step(i: int, state: torch.Tensor):
         if gen == "kernel":
@@ -343,7 +388,38 @@ def make_device_stream_step(batch: int, seed: int = 0, snr_db: float = 20.0, dty
         sample_h = out["h_mmse"].map(lambda t: t[:, :sample])
         return summary, sample_h, next_state(out["checksum"])
 
-    return step, torch.zeros((), dtype=torch.int32, device=dev)
+    return step, state0
+
+
+def _mesh_step(mesh, batch: int, seed: int, snr_db: float, dtype, sample: int, gen: str,
+               channel_model, txs: Cplx, tpre: Cplx, lts: Cplx | None, evm_den: float | None):
+    """The mesh stream step of `make_device_stream_step` (the JAX package's
+    ``_make_device_stream_step_mesh``): this rank's share of the batch, one
+    all-reduce over dp."""
+    dp, rank, group = M.axis(mesh, M.DP)
+    local = batch // dp
+    if local * dp != batch or local % G.LANES:
+        raise ValueError(f"batch {batch} over dp {dp}: each rank needs a multiple of {G.LANES}")
+
+    def step(i: int, state: torch.Tensor):
+        kseed = kernel_seed(seed, i, state, rank)
+        if gen == "kernel":
+            out = G.fused_gen_chain(kseed, local, txs, tpre, snr_db=snr_db, eq_dtype=dtype,
+                                    channel_model=channel_model, stream_sums=True)
+            packed = M.all_reduce(torch.cat([out["sums"].sum(-1), out["checksum"].sum()[None]]),
+                                  group)
+            s = packed[:-1]
+            summary = {name + "_nmse": s[k] / s[-1] for k, name in enumerate(_STREAM_ESTS)}
+        else:
+            out = RG.gen_raw_system(kseed, local, txs, tpre, lts, snr_db=snr_db,
+                                    channel_model=channel_model)
+            packed = M.all_reduce(torch.cat([_raw_pack(out, out["offsets"]),
+                                             out["checksum"].sum()[None]]), group)
+            summary = _raw_rates(packed[:-1], batch, evm_den)
+        sample_h = out["h_mmse"].map(lambda t: t[:, :sample])
+        return summary, sample_h, _state_of(packed[-1])
+
+    return step
 
 
 def run_stream_device(n_batches: int, batch: int, seed: int = 0, snr_db: float = 20.0,
