@@ -85,7 +85,19 @@ nvcc per source, all started together), then:
    (``parallel/launch.py``): the shard-map steps over dp=2 and dp=1 x blk=2,
    "sm" and "dense", within 1e-4 of the world of one, the mesh stream steps
    equal to the pool of the two ranks' single-process kernel calls, then
-   ``entry.dryrun_multichip(2)``.
+   ``entry.dryrun_multichip(2)``;
+15. runs the command line, ``tpu80211_torch.cli.main(argv)`` in this process
+   with its standard output captured, on the card: ``devices``; ``run`` in
+   the three modes (complex128, against the same command on the CPU);
+   ``parity`` in the three modes; ``raw`` at bench.py's 32768 x 2048
+   (kernel #5); ``sync`` at B=4096; ``stream --device-gen`` with each
+   generator, 3 x 32768, and again to resume; the host ``stream`` over the
+   native engine, 3 x 32768; ``quality --snrs 10,30 --batch 4096
+   --fused-dtype bf16``; ``bench --txconst`` (B=65536) and ``bench --f32``
+   (B=32768) at loop length 8; ``sweep`` in a world of one on NCCL.  Each
+   command must return 0 and its output passes its check; each command's
+   wall time is printed.  (``plot`` needs matplotlib, which the card's
+   machine lacks; the CPU tests cover it.)
 
 Kernels are timed through ``tpu80211_torch/utils/timing.py``.  Every failed check raises, so the script exits non-zero.  The last two
 lines are JSON: the kernel table (each kernel's launches on its path, max
@@ -96,6 +108,8 @@ operations, the chain's bf16 DFT products over 989 T/s and the rest over
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import pathlib
 import statistics
@@ -1622,6 +1636,172 @@ def phase_mesh_two(tmp: pathlib.Path) -> dict:
     return res["launches"]
 
 
+# -- the command line (phase 15) -------------------------------------------------------------
+
+B_CLI_RAW = B_RAW        # bench.py's raw shape: 32768 streams x NS=2048
+B_CLI_SYNC = 4096
+B_CLI_QUALITY = 4096
+N_CLI_STREAM = 3         # batches of B_GEN per stream command
+CLI_MODES = ("math", "matlab", "c_parity")
+PRINT_QUANTUM = 1e-10    # run prints 11 significant digits (%+.10e): one unit of the last, relative
+# the JAX commands' output keys: the stream summary and record
+# (tpu80211/pipeline/stream.py:297-301, 367, 484-487, 538) and a sweep row
+# (tpu80211/bench/scaling.py:62-71)
+STREAM_KEYS = {"frames", "batches", "wall_s", "frames_per_s", "out_dir"}
+HOST_STREAM_KEYS = {"frames", "batches", "out_dir"}
+RECORD_KEYS = {
+    "kernel": {f"{k}_nmse" for k in F.OUT_NAMES} | {"h_mmse_sample"},
+    "raw": {"detect_rate", "timing_in_band_rate", "evm_rms", "h_mmse_mag_nmse", "h_mmse_sample"},
+}
+SWEEP_KEYS = {"dp", "blk", "devices", "frames_per_s", "ms_per_step", "scaling_efficiency"}
+
+
+def cli_call(walls: dict, tag: str, *argv: str) -> str:
+    """``cli.main(argv)`` in this process, its standard output captured;
+    checks the exit code 0 and records the wall time (to a synchronize)."""
+    from tpu80211_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    walls[tag] = time.perf_counter() - t0
+    check(rc == 0, f"cli {' '.join(argv)}: exit code {rc}")
+    return buf.getvalue()
+
+
+def last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def parse_run(out: str) -> dict:
+    """``run``'s printed H_EST lines → {estimator: (53,) complex128}."""
+    res, name = {}, None
+    for line in out.splitlines():
+        if line.startswith("# "):
+            name = line[2:].split(" (")[0]
+            res[name] = []
+        elif line.startswith("H_EST["):
+            re_, im = line.split(" = ")[1].split()
+            res[name].append(complex(float(re_), float(im[:-1])))
+    return {k: np.array(v) for k, v in res.items()}
+
+
+def phase_cli(dev, tmp: pathlib.Path) -> dict:
+    """15: every subcommand but ``plot`` through ``cli.main`` on the card
+    (module docstring); returns the launches of #1/#2, #4, #5, #6, #7."""
+    from tpu80211_torch import cli
+    from tpu80211_torch.config import ESTIMATOR_NAMES
+
+    walls = {}
+    out = cli_call(walls, "devices", "devices")
+    check("H100" in out, f"devices: {out!r}")
+
+    torch.cuda.synchronize()
+    F.launches = D.place_launches = R.launches = G.launches = RG.launches = 0
+    run_err = {}
+    for mode in CLI_MODES:
+        got = parse_run(cli_call(walls, f"run {mode}", "run", "--mode", mode))
+        want = parse_run(cli_call(walls, f"run {mode} (cpu)", "run", "--mode", mode,
+                                  "--device", "cpu"))
+        exact = (cli.run_estimators(ESTIMATOR_NAMES, mode, device=dev),
+                 cli.run_estimators(ESTIMATOR_NAMES, mode, device="cpu"))
+        check(list(got) == list(want) == list(ESTIMATOR_NAMES), f"run {mode}: {list(got)}")
+        for name in ESTIMATOR_NAMES:
+            # tests/test_torch_models.py: 1e-12; 1e-8 for MATLAB mode's sigma^2 division
+            tol = 1e-8 if (mode, name) == ("matlab", "ps_mmse") else 1e-12
+            check(got[name].shape == (53,) and bool(np.isfinite(got[name]).all()),
+                  f"run {mode}: {name} shape {got[name].shape} or not finite")
+            err = rel(torch.from_numpy(exact[0][name][1]), torch.from_numpy(exact[1][name][1]))
+            printed = rel(torch.from_numpy(got[name]), torch.from_numpy(want[name]))
+            check(err <= tol and printed <= tol + PRINT_QUANTUM,
+                  f"run {mode} {name}: card vs CPU rel err {err:.3g} (printed {printed:.3g})")
+            run_err[mode] = max(run_err.get(mode, 0.0), err)
+        res = last_json(cli_call(walls, f"parity {mode}", "parity", "--mode", mode))
+        check(res["pass"] and max(res["max_rel_err"].values()) < 1e-6, f"parity {mode}: {res}")
+
+    res = last_json(cli_call(walls, "raw", "raw", "--batch", str(B_CLI_RAW), "--ns", str(NS)))
+    check(res["streams"] == res["detected"] == B_CLI_RAW, f"raw: {res}")
+    check(-4 <= res["timing_err_min"] <= res["timing_err_max"] <= -2, f"raw: {res}")
+    raw_res = res
+
+    res = last_json(cli_call(walls, "sync", "sync", "--batch", str(B_CLI_SYNC)))
+    check(abs(res["fo_hz_estimated"] - 20e3) <= 0.02 * 20e3, f"sync: {res}")  # tests/test_cfo.py:47
+    check(res["median_symbol_err_sync"] < res["median_symbol_err_uncorrected"], f"sync: {res}")
+    sync_res = res
+
+    stream_res = {}
+    for gen in S.GENERATORS:
+        where = tmp / f"stream_{gen}"
+        args = ("stream", "--device-gen", "--gen", gen, "--batches", str(N_CLI_STREAM),
+                "--batch", str(B_GEN), "--out-dir", str(where))
+        res = last_json(cli_call(walls, f"stream --device-gen --gen {gen}", *args))
+        check(set(res) == STREAM_KEYS and res["frames"] == N_CLI_STREAM * B_GEN, f"{gen}: {res}")
+        keys = RECORD_KEYS["raw" if gen in ("raw", "kernel_raw") else "kernel"]
+        for rec in read_stream(where, N_CLI_STREAM):
+            check(set(rec) == keys, f"stream {gen}: record keys {sorted(rec)}")
+            check(all(bool(np.isfinite(v).all()) for v in rec.values()), f"stream {gen}: not finite")
+            if gen in ("raw", "kernel_raw"):
+                check(float(rec["detect_rate"]) == 1.0, f"stream {gen}: detect {rec['detect_rate']}")
+        again = last_json(cli_call(walls, f"stream {gen} resumed", *args))
+        check(again["frames"] == 0, f"stream {gen}: the resumed run ran {again}")
+        stream_res[gen] = res["frames_per_s"]
+
+    where = tmp / "stream_host"
+    args = ("stream", "--batches", str(N_CLI_STREAM), "--batch", str(B_GEN), "--out-dir", str(where))
+    res = last_json(cli_call(walls, "stream (host, native)", *args))
+    check(set(res) == HOST_STREAM_KEYS and res["frames"] == N_CLI_STREAM * B_GEN, f"host: {res}")
+    for i in range(N_CLI_STREAM):
+        with np.load(where / f"h_est_{i:06d}.npz") as shard:
+            check(set(shard.files) == set(S._STREAM_ESTS), f"host stream shard {i}: {shard.files}")
+            check(all(shard[k].shape == (B_GEN, 53) and np.isfinite(shard[k]).all()
+                      for k in shard.files), f"host stream shard {i}")
+    again = last_json(cli_call(walls, "stream (host) resumed", *args))
+    check(again["batches"] == 0, f"host stream: the resumed run ran {again}")
+
+    rows = [json.loads(ln) for ln in cli_call(
+        walls, "quality", "quality", "--snrs", "10,30", "--batch", str(B_CLI_QUALITY),
+        "--fused-dtype", "bf16").strip().splitlines()]
+    check(len(rows) == 4 and all(r["path"] == "fused_chain" for r in rows[2:]), "quality rows")
+    for lo, hi in ((rows[0], rows[1]), (rows[2], rows[3])):
+        for name, m in lo["estimators"].items():
+            check(hi["estimators"][name]["nmse_db"] < m["nmse_db"],
+                  f"quality: {name} NMSE {m['nmse_db']} at 10 dB, "
+                  f"{hi['estimators'][name]['nmse_db']} at 30 dB")
+
+    bench = {}
+    for tag, args, row, storage in (
+            ("bench --txconst", ("--txconst", "--batch", str(B_MAIN)), "txconst", "bf16"),
+            ("bench --f32", ("--f32", "--batch", str(B_GEN)), "fused", "f32")):
+        res = last_json(cli_call(walls, tag, "bench", *args, "--iters", str(BENCH_ITERS)))
+        check(list(res["rows"]) == [row] and res["metric"].endswith(f"{storage} planes"),
+              f"{tag}: {res['metric']}")
+        bench[tag] = res["rows"][row]
+
+    rows = [json.loads(ln) for ln in cli_call(
+        walls, "sweep", "sweep", "--batch", "4096", "--iters", "2").strip().splitlines()]
+    check(len(rows) == 2 and all(set(r) == SWEEP_KEYS and r["devices"] == 1 for r in rows),
+          f"sweep rows {rows}")
+    check(not torch.distributed.is_initialized(), "sweep left its world up")
+
+    torch.cuda.synchronize()
+    launches = {"fused_chain": F.launches, "place": D.place_launches, "raw_chain": R.launches,
+                "gen_chain": G.launches, "raw_gen_chain": RG.launches}
+    for k, n in launches.items():
+        check(n > 0, f"phase 15 launched no {k} kernel")
+    print(f"phase 15: {card()}")
+    for tag, wall in walls.items():
+        print(f"phase 15: {tag}: {wall:.3f} s")
+    print(f"phase 15: raw {raw_res}; sync {sync_res}; device streams frames/s {stream_res}; "
+          f"bench {json.dumps(bench, separators=(',', ':'))}")
+    print(f"phase 15 ok: every subcommand but plot on the card in {sum(walls.values()):.1f} s; "
+          f"run card == CPU (max rel err {run_err}); parity passes in every mode; raw "
+          f"{B_CLI_RAW} streams all detected; sync, streams (resumed), quality, bench (gated), "
+          f"sweep pass; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1652,6 +1832,13 @@ def main() -> int:
     phase_native_fused(dev)
     with tempfile.TemporaryDirectory() as tmp:
         mesh_launches = [phase_mesh_one(cap, dev, pathlib.Path(tmp)), phase_mesh_two(pathlib.Path(tmp))]
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = phase_cli(dev, pathlib.Path(tmp))
+    launches += cli_launches["fused_chain"]
+    for k in ("place", "raw_chain"):
+        raw_launches[k] += cli_launches[k]
+    for k in ("gen_chain", "raw_gen_chain"):
+        gen_launches[k] += cli_launches[k]
     for k in ("gen_chain", "raw_gen_chain"):
         gen_launches[k] += sum(m[k] for m in mesh_launches)
     solve_launches["mmse_solve"] += sum(m["mmse_solve"] for m in mesh_launches)

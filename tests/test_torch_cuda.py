@@ -1129,3 +1129,61 @@ def test_mesh_stream_step_on_card_is_the_single_chip_step(gen, nccl_one, dev):
         assert torch.equal(msample.re, ssample.re) and torch.equal(m0, s0)
     assert (G.launches, RG.launches) == (before[0] + 4 * (gen == "kernel"),
                                          before[1] + 4 * (gen == "kernel_raw"))
+
+
+# -- the command line on the card --------------------------------------------------------------
+
+CLI_MODES = ["math", "matlab", "c_parity"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", CLI_MODES)
+def test_cli_run_on_card_matches_the_cpu(mode, dev, capsys):
+    """``run`` at complex128 on the card: the seven estimates equal the CPU's
+    within 1e-12 (1e-8 for the MATLAB-mode MMSE's σ² division,
+    tests/test_torch_models.py), and the command prints all of them."""
+    from tpu80211_torch import cli
+    from tpu80211_torch.config import ESTIMATOR_NAMES
+
+    got = cli.run_estimators(ESTIMATOR_NAMES, mode, device=dev)
+    want = cli.run_estimators(ESTIMATOR_NAMES, mode, device="cpu")
+    for name in ESTIMATOR_NAMES:
+        tol = 1e-8 if (mode, name) == ("matlab", "ps_mmse") else 1e-12
+        assert rel(got[name][1], want[name][1]) <= tol, name
+    assert cli.main(["run", "--mode", mode]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert sum(ln.startswith("H_EST[") for ln in lines) == 7 * 53
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", CLI_MODES)
+def test_cli_parity_on_card(mode, dev, capsys):
+    import json
+
+    from tpu80211_torch import cli
+
+    assert cli.main(["parity", "--mode", mode]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["pass"] and all(v < 1e-6 for v in res["max_rel_err"].values())
+
+
+@pytest.mark.cuda
+def test_cli_raw_on_card_through_the_raw_chain_kernel(dev, capsys):
+    """``raw`` at a small batch launches kernel #5 once and detects every
+    stream within [-4, -2], as the same command on the CPU does."""
+    import json
+
+    from tpu80211_torch import cli
+
+    before = R.launches
+    assert cli.main(["raw", "--batch", "200", "--seed", "3"]) == 0
+    torch.cuda.synchronize()
+    assert R.launches == before + 1
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert cli.main(["raw", "--batch", "200", "--seed", "3", "--device", "cpu"]) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["detected"] == got["streams"] == 200
+    assert -4 <= got["timing_err_min"] <= got["timing_err_max"] <= -2
+    for k in ("detected", "timing_err_min", "timing_err_max"):
+        assert got[k] == want[k], k
+    assert got["h_mmse_mean_abs"] == pytest.approx(want["h_mmse_mean_abs"], rel=1e-3)

@@ -1,0 +1,131 @@
+"""The inventory check of "round done": every public name of the JAX
+package ``tpu80211`` has a counterpart in ``tpu80211_torch``.
+
+For each public module of ``tpu80211`` (``__main__`` aside), the names it
+offers are its ``__all__``, or else the public names its source defines at
+top level (functions, classes, assignments), a package ``__init__``'s
+imports from inside the package included.  Each name must exist in the
+port's module of the same dotted path (``hasattr``), or be on one of two
+tables, each entry with its reason: ``RENAMED`` (the port's name must
+exist) and ``LEFT_BEHIND`` (TPU-only code that has no meaning on the card).
+Nothing else may be on either table: an entry that the port has after all
+fails too.
+"""
+
+import ast
+import importlib
+import pathlib
+import pkgutil
+
+import pytest
+
+import tpu80211
+
+# (JAX module, name) → (the port's name in the module of the same path, reason)
+RENAMED = {
+    ("tpu80211.kernels", "on_tpu"): (
+        "on_cuda", "the kernels' device gate: a CUDA device, not a TPU"),
+    ("tpu80211.kernels.mmse_solve", "solve_batched_pallas"): (
+        "solve_batched", "the dense solve through the hand-written kernel; not Pallas"),
+}
+
+_PANEL = "the TPU panel layout of the solve (lanes of 128 systems, padded panels)"
+_LANES = "the TPU's 128-lane batch granule; the port's kernels take any batch"
+_CPLX = ("a split-complex helper outside the kernels; torch has complex dtypes, so "
+         "the port keeps split planes only at the kernel boundary")
+# (JAX module, name) → reason
+LEFT_BEHIND = {
+    ("tpu80211.kernels.detect_kernel", "LANES"): _LANES,
+    ("tpu80211.kernels.fused_chain", "LANES"): _LANES,
+    ("tpu80211.kernels.mmse_solve", "LANES"): _LANES,
+    ("tpu80211.kernels.raw_chain", "LANES"): _LANES,
+    ("tpu80211.kernels.mmse_solve", "K"): _PANEL,
+    ("tpu80211.kernels.mmse_solve", "DIMS"): _PANEL,
+    ("tpu80211.kernels.mmse_solve", "N_PANELS"): _PANEL,
+    ("tpu80211.kernels.mmse_solve", "PanelDims"): _PANEL,
+    **{("tpu80211.cplx", name): _CPLX
+       for name in ("apply_dft", "dot", "matmul", "matmul_real", "stack", "vdot", "where")},
+}
+
+ROOT = pathlib.Path(tpu80211.__file__).parent
+
+
+def _modules() -> list[str]:
+    mods = ["tpu80211"] + [m.name for m in pkgutil.walk_packages(tpu80211.__path__, "tpu80211.")]
+    return sorted(m for m in mods if m.split(".")[-1] != "__main__")
+
+
+def _source(mod: str) -> pathlib.Path:
+    rel = pathlib.Path(*mod.split(".")[1:])
+    pkg = ROOT / rel / "__init__.py"
+    return pkg if pkg.exists() else (ROOT / rel).with_suffix(".py")
+
+
+def public_names(mod: str) -> list[str]:
+    """The module's ``__all__``, or else the public names its source binds
+    at top level (a package ``__init__``'s imports from the package
+    included)."""
+    path = _source(mod)
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and any(isinstance(t, ast.Name) and t.id == "__all__"
+                                                 for t in node.targets)):
+            return list(ast.literal_eval(node.value))
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in (node.targets if isinstance(node, ast.Assign) else [node.target]):
+                elts = target.elts if isinstance(target, (ast.Tuple, ast.List)) else [target]
+                names += [t.id for t in elts if isinstance(t, ast.Name)]
+        elif (path.name == "__init__.py" and isinstance(node, ast.ImportFrom)
+              and (node.level or (node.module or "").startswith("tpu80211"))):
+            names += [a.asname or a.name for a in node.names]
+    return [n for n in names if not n.startswith("_")]
+
+
+def _port(mod: str) -> str:
+    return "tpu80211_torch" + mod[len("tpu80211"):]
+
+
+MODULES = _modules()
+
+
+def test_every_public_module_is_walked():
+    """The walk reaches the modules this slice ports and every package."""
+    assert {"tpu80211.cli", "tpu80211.parity.oracle_np", "tpu80211.parity.oracle_native",
+            "tpu80211.datasets.extract", "tpu80211.utils.plots", "tpu80211.kernels.mmse_solve",
+            "tpu80211.parallel", "tpu80211.bench.scaling"} <= set(MODULES)
+    assert sum(len(public_names(m)) for m in MODULES) > 200
+
+
+@pytest.mark.parametrize("mod", MODULES)
+def test_module_has_a_counterpart_for_every_public_name(mod):
+    importlib.import_module(mod)
+    port = importlib.import_module(_port(mod))
+    missing = []
+    for name in public_names(mod):
+        if (mod, name) in LEFT_BEHIND:
+            continue
+        if (mod, name) in RENAMED:
+            name = RENAMED[mod, name][0]
+        if not hasattr(port, name):
+            missing.append(name)
+    assert not missing, f"{_port(mod)} lacks {missing}"
+
+
+@pytest.mark.parametrize("key", sorted(RENAMED), ids="/".join)
+def test_renamed_entry_is_a_public_name_and_its_target_exists(key):
+    mod, name = key
+    new, reason = RENAMED[key]
+    assert reason and name in public_names(mod)
+    port = importlib.import_module(_port(mod))
+    assert hasattr(port, new) and not hasattr(port, name)
+
+
+@pytest.mark.parametrize("key", sorted(LEFT_BEHIND), ids="/".join)
+def test_left_behind_entry_is_a_public_name_the_port_lacks(key):
+    mod, name = key
+    assert LEFT_BEHIND[key] and name in public_names(mod)
+    assert not hasattr(importlib.import_module(_port(mod)), name)

@@ -34,7 +34,10 @@ def test_package_imports_no_jax():
             "tpu80211_torch.ops.blocks", "tpu80211_torch.ops.equalize",
             "tpu80211_torch.parallel", "tpu80211_torch.parallel.mesh",
             "tpu80211_torch.parallel.multihost", "tpu80211_torch.parallel.launch",
-            "tpu80211_torch.bench.scaling", "tpu80211_torch.entry"} <= set(mods)
+            "tpu80211_torch.bench.scaling", "tpu80211_torch.entry",
+            "tpu80211_torch.cli", "tpu80211_torch.__main__", "tpu80211_torch.parity.oracle_np",
+            "tpu80211_torch.parity.oracle_native", "tpu80211_torch.datasets.extract",
+            "tpu80211_torch.utils.plots"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpu80211.')))\n"

@@ -6,6 +6,11 @@ and every Pallas kernel of ``tpu80211/kernels`` becomes a kernel written by
 hand for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.  On a
 CPU tensor a kernel wrapper runs its plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises.  Nothing here imports JAX.
+
+Beside the receive paths the port carries the JAX package's public
+surface: the command line (``python -m tpu80211_torch``, ``cli.py``), the
+parity oracles (``parity/``), the capture extractor
+(``datasets/extract.py``) and the figures (``utils/plots.py``).
 """
 
 from tpu80211_torch import constants

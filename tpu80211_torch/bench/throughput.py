@@ -3,6 +3,7 @@
     python -m tpu80211_torch.bench.throughput               # every row but --plain, on the card
     python -m tpu80211_torch.bench.throughput --raw --genraw 32768 16   # some rows, B and loop length
     python -m tpu80211_torch.bench.throughput --plain       # sc.rx_chain, plain PyTorch, on the card
+    python -m tpu80211_torch.bench.throughput --fused --f32 # the chain on float32 planes
     python -m tpu80211_torch.bench.throughput --device cpu 256 2   # a rehearsal on the plain versions
     python -m tpu80211_torch.bench.throughput --out rows.json      # also the full rows, as JSON
 
@@ -21,11 +22,17 @@ shapes, every row in one process.  Rows (``ROWS``):
 * ``plain`` (only on request): ``pipeline.sc.rx_chain`` in plain PyTorch on
   complex64 frames, B = 32,768.
 
+``--f32`` (``bench.py --f32``) runs the chain rows on bf16 planes
+(``F32_ROWS``: ``txconst``, ``fused``, ``txserve``) on float32 planes of the
+same frames, gated at the f32 tolerances (`CHAIN_TOL_F32`); ``txi8`` keeps
+its int8 words and the other rows their own types.
+
 **Gates, before any timing, in the same run; a failed gate exits
 non-zero.**  Chain rows: a finite checksum, and a 1,024-frame slice against
 the plain version (h planes and h_mmse within 1e-4, eq within 1e-2, each
-relative to the slice's largest value; the checksum's error is reported
-beside them, see `CHAIN_TOL`); ``plain
+relative to the slice's largest value; on f32 planes h 1e-5, h_mmse 1e-3,
+eq 1e-4; the checksum's error is reported beside them, see `CHAIN_TOL`);
+``plain
 against the same slice computed on the CPU (1e-4, h_mmse and eq 1e-3).
 Raw rows: every stream detected, start − offset in [−4, −2], EVM rms < 0.1,
 a finite checksum.  ``genraw``: detection rate 1.0, timing in band ≥ 0.85,
@@ -102,6 +109,10 @@ KERNELS = ("fused_chain", "detect", "raw_chain", "raw_gen_chain", "mmse_solve")
 # order (2.3e-4 of the largest checksum seen at B=2,048, while eq's element
 # stays within its bf16 tolerance)
 CHAIN_TOL = {"h": 1e-4, "h_mmse": 1e-4, "eq": 1e-2}
+# on float32 planes: chip_smoke.py's f32 tolerances (those of the JAX
+# package's tests, tests/test_fused_chain.py:50-65)
+CHAIN_TOL_F32 = {"h": 1e-5, "h_mmse": 1e-3, "eq": 1e-4}
+F32_ROWS = ("txconst", "fused", "txserve")   # the rows --f32 puts on float32 planes
 PLAIN_TOL = {"h": 1e-4, "h_mmse": 1e-3, "eq": 1e-3}
 
 
@@ -190,13 +201,16 @@ def chain_errors(got: dict, want: dict, n: int) -> dict:
     return errs
 
 
-def chain_case(path: str, batch: int, dev) -> Case:
-    """bench.py's chain rows on normal bf16 frames (bench.py:65-82, 462-489):
+def chain_case(path: str, batch: int, dev, f32: bool = False) -> Case:
+    """bench.py's chain rows on normal bf16 frames (bench.py:65-82, 462-489),
+    or with ``f32`` on float32 planes of the same draws (``F32_ROWS``):
     ``txconst``, ``txserve`` and ``txi8`` take the spectra of frame 0's tx
     packet; ``fused`` each frame's own."""
+    storage = torch.float32 if f32 else torch.bfloat16
+    tol = CHAIN_TOL_F32 if f32 else CHAIN_TOL
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    tx_pkt, rx_pkt = (_normal_planes(gen, 1200, batch, torch.bfloat16) for _ in range(2))
-    tx_lp, rx_lp = (_normal_planes(gen, 160, batch, torch.bfloat16) for _ in range(2))
+    tx_pkt, rx_pkt = (_normal_planes(gen, 1200, batch, storage) for _ in range(2))
+    tx_lp, rx_lp = (_normal_planes(gen, 160, batch, storage) for _ in range(2))
     kw = {}
     if path != "fused":
         txc = F.tx_spectra(tx_pkt.map(lambda t: t[:, 0].float()),
@@ -223,8 +237,8 @@ def chain_case(path: str, batch: int, dev) -> Case:
     finite = bool(torch.isfinite(out["checksum"]).all())
     gates = {"finite": finite, "err": [errs[k] for k in ("h", "h_mmse", "eq", "checksum")]}
     _gate(path, finite, gates, "checksum not finite")
-    _gate(path, all(errs[k] <= CHAIN_TOL[k] for k in CHAIN_TOL), gates,
-          f"a slice of {n} frames against the plain version, tolerances {CHAIN_TOL}")
+    _gate(path, all(errs[k] <= tol[k] for k in tol), gates,
+          f"a slice of {n} frames against the plain version, tolerances {tol}")
     return Case(gates, step, make_step(batch // 2))
 
 
@@ -350,11 +364,15 @@ class Row(NamedTuple):
     case: Callable    # (batch, iters, device) -> Case
 
 
+def _chain_row(path: str) -> Callable:
+    return lambda b, n, d, f32=False: chain_case(path, b, d, f32)
+
+
 ROWS = {
-    "txconst": Row(65536, 64, "frames/s", lambda b, n, d: chain_case("txconst", b, d)),
-    "fused": Row(32768, 48, "frames/s", lambda b, n, d: chain_case("fused", b, d)),
-    "txserve": Row(65536, 64, "frames/s", lambda b, n, d: chain_case("txserve", b, d)),
-    "txi8": Row(65536, 64, "frames/s", lambda b, n, d: chain_case("txi8", b, d)),
+    "txconst": Row(65536, 64, "frames/s", _chain_row("txconst")),
+    "fused": Row(32768, 48, "frames/s", _chain_row("fused")),
+    "txserve": Row(65536, 64, "frames/s", _chain_row("txserve")),
+    "txi8": Row(65536, 64, "frames/s", _chain_row("txi8")),
     "raw": Row(32768, 24, "streams/s", lambda b, n, d: raw_case(16, b, d)),
     "raw32": Row(32768, 24, "streams/s", lambda b, n, d: raw_case(32, b, d)),
     "genraw": Row(32768, 16, "streams/s", lambda b, n, d: genraw_case(b, d)),
@@ -445,13 +463,19 @@ def measure(case: Case, batch: int, iters: int, dev) -> dict:
     }
 
 
-def run_row(name: str, batch: int | None = None, iters: int | None = None, device="cuda") -> dict:
-    """Make, gate and time one row; raises GateError if a gate fails."""
+def run_row(name: str, batch: int | None = None, iters: int | None = None, device="cuda",
+            f32: bool = False) -> dict:
+    """Make, gate and time one row (with ``f32``, a row of ``F32_ROWS`` on
+    float32 planes); raises GateError if a gate fails."""
     spec = ROWS[name]
     batch, iters = batch or spec.batch, iters or spec.iters
     dev = torch.device(device)
-    case = spec.case(batch, iters, dev)
+    if f32 and name not in F32_ROWS:
+        raise ValueError(f"{name}: no float32 planes (--f32 applies to {F32_ROWS})")
+    case = spec.case(batch, iters, dev, **({"f32": True} if f32 else {}))
     row = {"unit": spec.unit, "gates": case.gates, **measure(case, batch, iters, dev)}
+    if name in F32_ROWS:
+        row["storage"] = "f32" if f32 else "bf16"
     del case
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -495,8 +519,10 @@ def summary(rows: dict, device) -> dict:
     then every row compact."""
     head = "txconst" if "txconst" in rows else next(iter(rows))
     value = rows[head]["per_s"]
+    storage = rows[head].get("storage")
     return {
-        "metric": f"{head} {rows[head]['unit']}, gated, loop-length marginal",
+        "metric": f"{head} {rows[head]['unit']}, gated, loop-length marginal"
+                  + (f", {storage} planes" if storage else ""),
         "unit": rows[head]["unit"], "value": round(value, 1),
         "vs_baseline": round(value / BASELINE_FRAMES_PER_S, 1),
         "device": device_name(device),
@@ -505,14 +531,15 @@ def summary(rows: dict, device) -> dict:
 
 
 def run(names=DEFAULT_ROWS, batch: int | None = None, iters: int | None = None,
-        device="cuda", log=None) -> dict:
+        device="cuda", log=None, f32: bool = False) -> dict:
     """Every named row in this process, in order; returns the full rows.
+    With ``f32``, the rows of ``F32_ROWS`` run on float32 planes.
     ``log(name, row)`` is called after each row."""
     if torch.device(device).type == "cuda":
         _build.build_all([_build.CSRC / f"{k}.cu" for k in KERNELS])
     rows = {}
     for name in names:
-        rows[name] = run_row(name, batch, iters, device)
+        rows[name] = run_row(name, batch, iters, device, f32=f32 and name in F32_ROWS)
         if log is not None:
             log(name, rows[name])
     return rows
@@ -526,6 +553,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("batch", nargs="?", type=int, help="B for every row run (default: each row's)")
     ap.add_argument("iters", nargs="?", type=int, help="the loop length n (default: each row's)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu, the rehearsal")
+    ap.add_argument("--f32", action="store_true",
+                    help=f"float32 planes in place of bf16 for the rows {', '.join(F32_ROWS)}")
     ap.add_argument("--out", help="also write the full rows to this JSON file")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
@@ -541,7 +570,7 @@ def main(argv: list[str] | None = None) -> int:
     def log(name, row):
         print(f"{name}: {json.dumps(compact(row))}", file=sys.stderr, flush=True)
 
-    rows = run(names, args.batch, args.iters, dev, log)
+    rows = run(names, args.batch, args.iters, dev, log, f32=args.f32)
     line = json.dumps(summary(rows, dev), separators=(",", ":"))
     if args.out:
         Report(meta={"device": device_name(dev)}, entries=rows).save(args.out)

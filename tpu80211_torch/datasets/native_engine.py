@@ -31,22 +31,28 @@ from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.datasets.synthetic import FrameBatch, _lts_spectrum
 
 _NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
-_SO = _NATIVE_DIR / "build" / "libdataengine.so"
 
 _F = ctypes.POINTER(ctypes.c_float)
 
 
+def build_library(name: str) -> pathlib.Path:
+    """``native/build/<name>``, built with ``make`` (that target alone) if it
+    is missing; one build at a time, under a file lock, since test workers
+    may ask at once."""
+    so = _NATIVE_DIR / "build" / name
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        with open(so.parent / ".build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not so.exists():
+                subprocess.run(["make", "-C", str(_NATIVE_DIR), f"build/{name}"],
+                               check=True, capture_output=True)
+    return so
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    if not _SO.exists():
-        # one build at a time: test workers may ask at once
-        _SO.parent.mkdir(parents=True, exist_ok=True)
-        with open(_SO.parent / ".build.lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            if not _SO.exists():
-                subprocess.run(["make", "-C", str(_NATIVE_DIR), "build/libdataengine.so"],
-                               check=True, capture_output=True)
-    lib = ctypes.CDLL(str(_SO))
+    lib = ctypes.CDLL(str(build_library("libdataengine.so")))
     lib.gen_frames_f32.argtypes = (
         [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
          ctypes.c_double, ctypes.c_double, ctypes.c_int]

@@ -41,6 +41,7 @@ from tpu80211_torch.ops import channel
 
 LANES = 128  # the stream record's frames, and the batch granule
 N_TAPS = channel.LEGACY_N_TAPS
+RMS_SPREAD = channel.LEGACY_RMS_SAMPLES  # the legacy profile's rms delay spread, samples
 INTERP_KINDS = F.INTERP_KINDS
 _OUT_NAMES = F.OUT_NAMES
 N_SUMS = len(_OUT_NAMES) + 1  # stream sums: 7 estimators' Σ|ĥ − h|², then Σ|h|²
