@@ -98,6 +98,17 @@ nvcc per source, all started together), then:
    command must return 0 and its output passes its check; each command's
    wall time is printed.  (``plot`` needs matplotlib, which the card's
    machine lacks; the CPU tests cover it.)
+16. runs the bench modules ported from the JAX package's measurement scripts
+   (``python -m tpu80211_torch.bench.<name>``'s ``main`` in this process,
+   standard output captured): ``stream`` (the four device stream
+   generators, B=32768), ``latency`` (B=512, 4096, 32768), ``raw_stream``
+   (16384 x 2048), ``raw_quality`` (8 SNRs x 4096, 8192 noise streams),
+   ``stages`` (16384), ``detect`` (4096 x 2048), ``mmse_solve`` (8192, with
+   the library rows), ``raw_anatomy`` (32768 x 2048, 4096 a sensitivity
+   point) and ``scaling`` (a gloo world of 8 CPU processes, two processes,
+   and the card's world of one on NCCL), each at its script's sizes with
+   its gates; loop lengths are cut (`SCRIPT_RUNS`, printed).  Each module
+   must return 0; its last line and wall time are printed.
 
 Kernels are timed through ``tpu80211_torch/utils/timing.py``.  Every failed check raises, so the script exits non-zero.  The last two
 lines are JSON: the kernel table (each kernel's launches on its path, max
@@ -1802,6 +1813,62 @@ def phase_cli(dev, tmp: pathlib.Path) -> dict:
     return launches
 
 
+# -- the script modules (phase 16) -----------------------------------------------------------
+
+# each module's arguments: the script's sizes; the loop length n cut from the
+# script's (third column) to keep the phase near 90 s
+SCRIPT_RUNS = (
+    ("stream", ("32768", "8"), "n 24 -> 8"),
+    ("latency", ("16",), "iters 32 -> 16"),
+    ("raw_stream", ("16384", "8"), "n 24 -> 8"),
+    ("raw_quality", (), "untimed"),
+    ("stages", ("16384", "8"), "n 24 -> 8"),
+    ("detect", ("4096", "2048", "8"), "n 24 -> 8"),
+    ("mmse_solve", ("8192", "8", "--methods", "gauss,chol,xla,xla_chol"), "n 32 -> 8"),
+    ("raw_anatomy", ("32768", "8"), "n 24 -> 8"),
+    ("scaling", ("--iters", "2"), "iters 5 -> 2"),
+)
+
+
+def phase_scripts(tmp: pathlib.Path) -> dict:
+    """16: every script module's ``main`` on the card with its gates (module
+    docstring); returns the launches by kernel row."""
+    import importlib
+
+    torch.cuda.synchronize()
+    F.launches = D.launches = D.place_launches = R.launches = G.launches = RG.launches = 0
+    MS.launches = 0
+    walls, docs = {}, {}
+    t_all = time.perf_counter()
+    for name, args, cut in SCRIPT_RUNS:
+        mod = importlib.import_module(f"tpu80211_torch.bench.{name}")
+        out = tmp / f"{name}.json"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([*args, "--out", str(out)])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"bench.{name} {' '.join(args)}: exit code {rc}")
+        docs[name] = json.loads(out.read_text())
+        print(f"phase 16: {name} {' '.join(args)} ({cut}), {walls[name]:.1f} s: "
+              f"{buf.getvalue().strip().splitlines()[-1]}", flush=True)
+    torch.cuda.synchronize()
+    launches = {"fused_chain": F.launches, "detect": D.launches, "place": D.place_launches,
+                "raw_chain": R.launches, "gen_chain": G.launches, "raw_gen_chain": RG.launches,
+                "mmse_solve": MS.launches}
+    for k, n in launches.items():
+        check(n > 0, f"phase 16 launched no {k} kernel")
+    stream = docs["stream"]["rows"]
+    check(set(stream) == set(S.GENERATORS), f"stream rows {sorted(stream)}")
+    check("card_world_of_one" in docs["scaling"], "scaling: no world of one on the card")
+    print(f"phase 16: {card()}")
+    print(f"phase 16 ok: {len(SCRIPT_RUNS)} script modules gated and run on the card in "
+          f"{time.perf_counter() - t_all:.1f} s; stream idle shares "
+          f"{ {g: r['idle_share'] for g, r in stream.items()} }; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1834,11 +1901,15 @@ def main() -> int:
         mesh_launches = [phase_mesh_one(cap, dev, pathlib.Path(tmp)), phase_mesh_two(pathlib.Path(tmp))]
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = phase_cli(dev, pathlib.Path(tmp))
-    launches += cli_launches["fused_chain"]
+    with tempfile.TemporaryDirectory() as tmp:
+        script_launches = phase_scripts(pathlib.Path(tmp))
+    launches += cli_launches["fused_chain"] + script_launches["fused_chain"]
     for k in ("place", "raw_chain"):
-        raw_launches[k] += cli_launches[k]
+        raw_launches[k] += cli_launches[k] + script_launches[k]
+    raw_launches["detect"] += script_launches["detect"]
     for k in ("gen_chain", "raw_gen_chain"):
-        gen_launches[k] += cli_launches[k]
+        gen_launches[k] += cli_launches[k] + script_launches[k]
+    solve_launches["mmse_solve"] += script_launches["mmse_solve"]
     for k in ("gen_chain", "raw_gen_chain"):
         gen_launches[k] += sum(m[k] for m in mesh_launches)
     solve_launches["mmse_solve"] += sum(m["mmse_solve"] for m in mesh_launches)

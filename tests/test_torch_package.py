@@ -37,7 +37,10 @@ def test_package_imports_no_jax():
             "tpu80211_torch.bench.scaling", "tpu80211_torch.entry",
             "tpu80211_torch.cli", "tpu80211_torch.__main__", "tpu80211_torch.parity.oracle_np",
             "tpu80211_torch.parity.oracle_native", "tpu80211_torch.datasets.extract",
-            "tpu80211_torch.utils.plots"} <= set(mods)
+            "tpu80211_torch.utils.plots",
+            *(f"tpu80211_torch.bench.{m}" for m in (
+                "common", "stream", "latency", "raw_stream", "raw_quality", "stages", "detect",
+                "mmse_solve", "raw_anatomy"))} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tpu80211.')))\n"

@@ -129,7 +129,7 @@ class Case(NamedTuple):
     half: Callable[[int], object]
 
 
-def _gate(row: str, ok: bool, gates: dict, what: str) -> None:
+def gate(row: str, ok: bool, gates: dict, what: str) -> None:
     if not ok:
         raise GateError(f"{row}: gate failed ({what}): {gates}")
 
@@ -180,7 +180,7 @@ def _normal_planes(gen: torch.Generator, rows: int, batch: int, dtype) -> Cplx:
                   for _ in range(2)))
 
 
-def _cols(c: Cplx, n: int) -> Cplx:
+def columns(c: Cplx, n: int) -> Cplx:
     return c.map(lambda t: t[..., :n].contiguous())
 
 
@@ -223,7 +223,7 @@ def chain_case(path: str, batch: int, dev, f32: bool = False) -> Case:
 
     def make_step(n: int):
         """One step on the first ``n`` frames, cut once here."""
-        tp, pk, tl, lp = (c if n == batch else _cols(c, n) for c in (tx_pkt, rx_pkt, tx_lp, rx_lp))
+        tp, pk, tl, lp = (c if n == batch else columns(c, n) for c in (tx_pkt, rx_pkt, tx_lp, rx_lp))
         if path == "fused":
             return lambda i: F.fused_rx_chain_lane_major(tp, pk, tl, lp, eps=1e-6 * i)
         return lambda i: F.fused_rx_chain_txconst(*txc, pk, lp, eps=1e-6 * i, **kw)
@@ -231,35 +231,31 @@ def chain_case(path: str, batch: int, dev, f32: bool = False) -> Case:
     step = make_step(batch)
     out = step(0)
     n = min(SLICE, batch)
-    tx = F.TxFrames(_cols(tx_pkt, n), _cols(tx_lp, n)) if path == "fused" else txc
-    want = F.fused_chain_plain(_cols(rx_pkt, n), _cols(rx_lp, n), tx, F.chain_consts(dev), **kw)
+    tx = F.TxFrames(columns(tx_pkt, n), columns(tx_lp, n)) if path == "fused" else txc
+    want = F.fused_chain_plain(columns(rx_pkt, n), columns(rx_lp, n), tx, F.chain_consts(dev), **kw)
     errs = chain_errors(out, want, n)
     finite = bool(torch.isfinite(out["checksum"]).all())
     gates = {"finite": finite, "err": [errs[k] for k in ("h", "h_mmse", "eq", "checksum")]}
-    _gate(path, finite, gates, "checksum not finite")
-    _gate(path, all(errs[k] <= tol[k] for k in tol), gates,
-          f"a slice of {n} frames against the plain version, tolerances {tol}")
+    gate(path, finite, gates, "checksum not finite")
+    gate(path, all(errs[k] <= tol[k] for k in tol), gates,
+         f"a slice of {n} frames against the plain version, tolerances {tol}")
     return Case(gates, step, make_step(batch // 2))
 
 
-def plain_case(batch: int, dev) -> Case:
-    """``--plain``, bench.py's ``--xla`` (bench.py:88-97): ``sc.rx_chain``
-    on normal complex64 frames, batch first; each step scales its inputs
-    by (1 + eps), as bench.py's does."""
+def plain_frames(batch: int, dev) -> tuple[torch.Tensor, ...]:
+    """bench.py's ``_gen`` (bench.py:70-85) in complex64, batch first:
+    (tx_pkt (B, 1200), rx_pkt, tx_lp (B, 160), rx_lp) of standard complex
+    normals from seed 0 on ``dev``."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    return tuple(torch.randn((batch, n), generator=gen, device=dev, dtype=torch.complex64)
+                 for n in (1200, 1200, 160, 160))
 
-    def frames(n_samples: int) -> torch.Tensor:
-        return torch.randn((batch, n_samples), generator=gen, device=dev, dtype=torch.complex64)
 
-    ins = (frames(1200), frames(1200), frames(160), frames(160))
-
-    def make_step(n: int):
-        args = tuple(x if n == batch else x[:n].contiguous() for x in ins)
-        return lambda i: sc.rx_chain(*(x * (1.0 + 1e-6 * i) for x in args))
-
-    step = make_step(batch)
-    out = step(0)
-    n = min(SLICE, batch)
+def plain_gates(row: str, ins: tuple, out: sc.RxOutputs) -> dict:
+    """``sc.rx_chain``'s outputs on ``ins`` held to the first `SLICE` frames
+    received on the CPU (`PLAIN_TOL`), and finite; their values, or
+    GateError."""
+    n = min(SLICE, ins[0].shape[0])
     want = sc.rx_chain(*(x[:n].cpu() for x in ins))
     errs = {"h": 0.0, "h_mmse": 0.0, "eq": 0.0}
     for name in out._fields:
@@ -267,9 +263,24 @@ def plain_case(batch: int, dev) -> Case:
         errs[key] = max(errs[key], rel(getattr(out, name)[:n], getattr(want, name)))
     finite = all(bool(torch.isfinite(v).all()) for v in out)
     gates = {"finite": finite, "err": [errs[k] for k in ("h", "h_mmse", "eq")]}
-    _gate("plain", finite, gates, "outputs not finite")
-    _gate("plain", all(errs[k] <= PLAIN_TOL[k] for k in PLAIN_TOL), gates,
-          f"a slice of {n} frames against the CPU, tolerances {PLAIN_TOL}")
+    gate(row, finite, gates, "outputs not finite")
+    gate(row, all(errs[k] <= PLAIN_TOL[k] for k in PLAIN_TOL), gates,
+         f"a slice of {n} frames against the CPU, tolerances {PLAIN_TOL}")
+    return gates
+
+
+def plain_case(batch: int, dev) -> Case:
+    """``--plain``, bench.py's ``--xla`` (bench.py:88-97): ``sc.rx_chain``
+    on normal complex64 frames, batch first; each step scales its inputs
+    by (1 + eps), as bench.py's does."""
+    ins = plain_frames(batch, dev)
+
+    def make_step(n: int):
+        args = tuple(x if n == batch else x[:n].contiguous() for x in ins)
+        return lambda i: sc.rx_chain(*(x * (1.0 + 1e-6 * i) for x in args))
+
+    step = make_step(batch)
+    gates = plain_gates("plain", ins, step(0))
     return Case(gates, step, make_step(batch // 2))
 
 
@@ -285,7 +296,7 @@ def raw_case(decimate: int, batch: int, dev) -> Case:
     kw = dict(stream_sums=True, equalize_with="h_mmse", decimate=decimate)
 
     def make_step(n: int):
-        xs = x if n == batch else _cols(x, n)
+        xs = x if n == batch else columns(x, n)
         return lambda i: R.raw_rx_txconst_fused(xs, lts, *txc, eps=1e-6 * i, **kw)
 
     step = make_step(batch)
@@ -297,9 +308,9 @@ def raw_case(decimate: int, batch: int, dev) -> Case:
     band = [int(err.min()), int(err.max())]
     gates = {"detect": det, "band": band, "evm": evm, "finite": finite}
     name = "raw" if decimate == 16 else f"raw{decimate}"
-    _gate(name, det == 1.0, gates, "a stream was not detected")
-    _gate(name, -4 <= band[0] and band[1] <= -2, gates, "start - offset outside [-4, -2]")
-    _gate(name, evm < 0.1 and finite, gates, "EVM rms >= 0.1 or checksum not finite")
+    gate(name, det == 1.0, gates, "a stream was not detected")
+    gate(name, -4 <= band[0] and band[1] <= -2, gates, "start - offset outside [-4, -2]")
+    gate(name, evm < 0.1 and finite, gates, "EVM rms >= 0.1 or checksum not finite")
     return Case(gates, step, make_step(batch // 2))
 
 
@@ -323,21 +334,35 @@ def genraw_case(batch: int, dev) -> Case:
     evm = float(torch.sqrt(out["evm_sums"][det].double().mean() / evm_den))
     finite = bool(torch.isfinite(out["checksum"]).all())
     gates = {"detect": rate, "in_band": in_band, "evm": evm, "finite": finite}
-    _gate("genraw", rate == 1.0, gates, "detection rate below 1")
-    _gate("genraw", in_band >= 0.85, gates, "timing in band below 0.85")
-    _gate("genraw", evm < 0.1 and finite, gates, "EVM rms >= 0.1 or checksum not finite")
+    gate("genraw", rate == 1.0, gates, "detection rate below 1")
+    gate("genraw", in_band >= 0.85, gates, "timing in band below 0.85")
+    gate("genraw", evm < 0.1 and finite, gates, "EVM rms >= 0.1 or checksum not finite")
     return Case(gates, step, make_step(batch // 2))
 
 
-def dense_case(batch: int, iters: int, dev) -> Case:
-    """bench.py's dense row (bench.py:151-198): ``fused_rank1_solve`` with
-    ``method="chol"`` on systems σ²I + u·uᴴ, u and rx (B, 53) complex64 of
-    standard normal parts; step i solves with σ² = 0.37·(1 + 1e-6·i)."""
-    gen = torch.Generator(device=dev).manual_seed(1)
+def solve_steps(solve: Callable, batch: int, iters: int, dev, seed: int = 1):
+    """Steps at B and B/2 that ``solve(u, rx, σ²)`` systems σ²I + u·uᴴ, u and
+    rx (B, 53) complex64 of standard normal parts from ``seed``; step i with
+    σ² = 0.37·(1 + 1e-6·i).  Returns (step, half, u, rx)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     u, rx = (torch.complex(torch.randn(batch, 53, generator=gen, device=dev),
                            torch.randn(batch, 53, generator=gen, device=dev)) for _ in range(2))
     sigma2 = [torch.full((batch,), SOLVE_SIGMA2 * (1 + 1e-6 * i), device=dev)
               for i in range(2 * iters)]
+
+    def make_step(n: int):
+        us, rs = (u, rx) if n == batch else (u[:n].contiguous(), rx[:n].contiguous())
+        ws = sigma2 if n == batch else [w[:n].contiguous() for w in sigma2]
+        return lambda i: solve(us, rs, ws[i])
+
+    return make_step(batch), make_step(batch // 2), u, rx
+
+
+def dense_case(batch: int, iters: int, dev) -> Case:
+    """bench.py's dense row (bench.py:151-198): ``fused_rank1_solve`` with
+    ``method="chol"`` on `solve_steps`' systems."""
+    step, half, u, rx = solve_steps(lambda *a: MS.fused_rank1_solve(*a, "chol"), batch, iters,
+                                    dev)
     got = MS.fused_rank1_solve(u, rx, torch.full((batch,), SOLVE_SIGMA2, device=dev), "chol")
     spots = list(range(0, batch, max(1, batch // 7)))
     un, rn, z = (t[spots].cpu().to(torch.complex128).numpy() for t in (u, rx, got))
@@ -347,14 +372,8 @@ def dense_case(batch: int, iters: int, dev) -> Case:
         want = np.linalg.solve(a, rn[k])
         worst = max(worst, float(np.abs(z[k] - want).max() / np.abs(want).max()))
     gates = {"err": worst, "systems": len(spots)}
-    _gate("dense", worst < 5e-5, gates, "a system off numpy's f64 solve by 5e-5 or more")
-
-    def make_step(n: int):
-        us, rs = (u, rx) if n == batch else (u[:n].contiguous(), rx[:n].contiguous())
-        ws = sigma2 if n == batch else [w[:n].contiguous() for w in sigma2]
-        return lambda i: MS.fused_rank1_solve(us, rs, ws[i], "chol")
-
-    return Case(gates, make_step(batch), make_step(batch // 2))
+    gate("dense", worst < 5e-5, gates, "a system off numpy's f64 solve by 5e-5 or more")
+    return Case(gates, step, half)
 
 
 class Row(NamedTuple):
@@ -431,18 +450,20 @@ def measure(case: Case, batch: int, iters: int, dev) -> dict:
 
     def marginal(long, short):
         """(host, event) marginal seconds of ``long`` over ``short``, each a
-        (step, n) loop; the events with the card held until both are queued."""
+        (step, n) loop, the events with the card held until both are queued;
+        and the host seconds of ``short`` alone."""
         h_long, _, d_long = _loop(*long, dev)
         h_short, _, _ = _loop(*short, dev)
         if not cuda:
-            return h_long - h_short, None
+            return h_long - h_short, None, h_short
         hold = int(cps * (2 * d_long + 2e-3))
         e_long = _loop(*long, dev, hold)[1]
         e_short = _loop(*short, dev, hold)[1]
-        return h_long - h_short, e_long - e_short
+        return h_long - h_short, e_long - e_short, h_short
 
-    loop = [marginal((case.step, 2 * iters), (case.step, iters)) for _ in range(REPS)]
-    bmarg = [marginal((case.step, iters), (case.half, iters)) for _ in range(REPS)]
+    loop3 = [marginal((case.step, 2 * iters), (case.step, iters)) for _ in range(REPS)]
+    loop = [m[:2] for m in loop3]
+    bmarg = [marginal((case.step, iters), (case.half, iters))[:2] for _ in range(REPS)]
 
     def med(pairs, k: int, per: int):
         vals = [p[k] for p in pairs]
@@ -460,7 +481,36 @@ def measure(case: Case, batch: int, iters: int, dev) -> dict:
         "per_s_event": None if loop_ms["event"] is None else batch / loop_ms["event"] * 1e3,
         "idle_share": None if loop_ms["event"] is None else 1.0 - loop_ms["event"] / loop_ms["host"],
         "marginals_s": {"loop": loop, "batch": bmarg},
+        # the host seconds of each n-step loop of the loop fence, dispatch and
+        # the final synchronize included: what one run of n steps costs a caller
+        "single_s": [m[2] for m in loop3],
     }
+
+
+def device_busy(step, n: int, dev) -> dict | None:
+    """The card's busy time over steps 0..n−1, from ``torch.profiler``'s
+    device activity (kernels, copies, fills), per step: {"busy_ms",
+    "launches"}; None off the card.
+
+    `measure`'s events time the device alone only while its hold covers
+    the queued loop.  A step of many small launches fills the card's launch
+    queue before the loop is queued: the host then blocks until the hold
+    ends and goes on at the device's pace, so the events read the host's
+    gaps too and its idle share reads near 0.  The profiler's busy sum has
+    no such limit."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    step(0)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            step(i)
+        torch.cuda.synchronize(dev)
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return {"busy_ms": sum(e.self_device_time_total for e in rows) / 1e3 / n,
+            "launches": sum(e.count for e in rows) / n}
 
 
 def run_row(name: str, batch: int | None = None, iters: int | None = None, device="cuda",
@@ -485,15 +535,15 @@ def run_row(name: str, batch: int | None = None, iters: int | None = None, devic
 # -- the line --------------------------------------------------------------------------------
 
 
-def _short(x, digits: int):
+def rounded(x, digits: int):
     """Floats to ``digits`` significant digits, through lists and dicts."""
     if isinstance(x, bool) or x is None or isinstance(x, int):
         return x
     if isinstance(x, float):
         return float(f"{x:.{digits}g}")
     if isinstance(x, (list, tuple)):
-        return [_short(v, digits) for v in x]
-    return {k: _short(v, digits) for k, v in x.items()}
+        return [rounded(v, digits) for v in x]
+    return {k: rounded(v, digits) for k, v in x.items()}
 
 
 def compact(row: dict) -> dict:
@@ -502,10 +552,10 @@ def compact(row: dict) -> dict:
     items), their agreement and the idle share (3 digits), the gates (2)."""
     return {
         "per_s": round(row["per_s"]),
-        "ms": _short([row["loop_ms"]["event"], row["loop_ms"]["host"]], 4),
-        "bms": _short([row["batch_ms"]["event"], row["batch_ms"]["host"]], 4),
-        "fa": _short(row["fence_agreement"], 3), "idle": _short(row["idle_share"], 3),
-        "gates": _short(row["gates"], 2),
+        "ms": rounded([row["loop_ms"]["event"], row["loop_ms"]["host"]], 4),
+        "bms": rounded([row["batch_ms"]["event"], row["batch_ms"]["host"]], 4),
+        "fa": rounded(row["fence_agreement"], 3), "idle": rounded(row["idle_share"], 3),
+        "gates": rounded(row["gates"], 2),
     }
 
 

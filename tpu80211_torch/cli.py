@@ -281,26 +281,9 @@ def _cmd_stream(args) -> int:
 
 
 def _cmd_sweep(args) -> int:
-    import os
-    import tempfile
+    from tpu80211_torch.bench.scaling import run_sweep
 
-    import torch.distributed as dist
-
-    from tpu80211_torch.bench.scaling import sweep
-    from tpu80211_torch.parallel.multihost import init_distributed
-
-    own = not dist.is_initialized()
-    with tempfile.TemporaryDirectory() as tmp:
-        if own and "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-            init_distributed(device=args.device)            # the world torchrun set up
-        elif own:
-            init_distributed(f"file://{tmp}/store", 1, 0, device=args.device)   # a world of one
-        try:
-            rows = sweep(batch=args.batch, iters=args.iters, device=args.device)
-            rank = dist.get_rank()
-        finally:
-            if own:
-                dist.destroy_process_group()
+    rows, rank = run_sweep(batch=args.batch, iters=args.iters, device=args.device)
     if rank == 0:
         for row in rows:
             print(json.dumps(row))
