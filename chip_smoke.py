@@ -111,8 +111,9 @@ nvcc per source, all started together), then:
    must return 0; its last line and wall time are printed.
 
 Kernels are timed through ``tpu80211_torch/utils/timing.py``.  Every failed check raises, so the script exits non-zero.  The last two
-lines are JSON: the kernel table (each kernel's launches on its path, max
-abs error, card and plain ms, and its bound: bytes over 3.35 TB/s or
+lines are JSON: the kernel table (each kernel's launches on its path, as
+the program's counters count them, max abs error, card and plain ms, and
+its bound: bytes over 3.35 TB/s or
 operations, the chain's bf16 DFT products over 989 T/s and the rest over
 67 T/s, whichever is larger), then the device summary.
 """
@@ -147,6 +148,7 @@ from tpu80211_torch.pipeline import rx as RXP
 from tpu80211_torch.pipeline import sc as SCP
 from tpu80211_torch.pipeline import stream as S
 from tpu80211_torch.bench import throughput as TP
+from tpu80211_torch.utils import spans
 from tpu80211_torch.utils.timing import bound, card, in_turns, nbytes, time_ms
 
 SEED = 0
@@ -179,6 +181,13 @@ KERNELS = ("fused_chain", "detect", "raw_chain", "gen_chain", "raw_gen_chain", "
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def launched(since: dict, *kernels: str) -> dict:
+    """Each kernel's launches since ``since``, a snapshot of the program's
+    counters (``launch.<kernel>`` in `spans.counters`)."""
+    now = spans.counters.snapshot()
+    return {k: now.get(f"launch.{k}", 0) - since.get(f"launch.{k}", 0) for k in kernels}
 
 
 def rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -326,14 +335,14 @@ def phase_main(cap, dev):
     del rp, rl
     torch.cuda.synchronize()
 
-    F.launches = D.launches = D.place_launches = R.launches = 0
+    since = spans.counters.snapshot()
     out = F.fused_rx_chain_txconst(*txc, pk, lp)
     out_mmse = F.fused_rx_chain_txconst(*txc, pk, lp, equalize_with="h_mmse")
     out_serve = F.fused_rx_chain_txconst(*txc, pk, lp, serve=True)
     out_i8 = F.fused_rx_chain_txconst(*txc, qp, ql, lsb=lsb)
     out_sync = F.fused_rx_chain_txconst(*txc, pk, lp, sync=True)
     torch.cuda.synchronize()
-    launches = F.launches
+    launches = launched(since, "fused_chain")["fused_chain"]
     check(launches > 0, "the main path launched no kernel")
 
     for tag, o in (("bf16", out), ("mmse", out_mmse), ("serve", out_serve), ("int8", out_i8),
@@ -560,7 +569,7 @@ def phase_raw(cap, dev):
     kw = dict(stream_sums=True, equalize_with="h_mmse")
     torch.cuda.synchronize()
 
-    F.launches = D.launches = D.place_launches = R.launches = 0
+    since = spans.counters.snapshot()
     x = D.place_streams(sig, noise, offs)
     out16 = R.raw_rx_txconst_fused(x, lts, *txc, decimate=16, **kw)
     out32 = R.raw_rx_txconst_fused(x, lts, *txc, decimate=32, **kw)
@@ -569,8 +578,7 @@ def phase_raw(cap, dev):
     out_nosync = R.raw_rx_txconst_fused(xc, lts, *txc, decimate=16, **kw)
     staged = P.raw_rx_txconst(x, lts, *txc, equalize_with="h_mmse")
     torch.cuda.synchronize()
-    launches = {"fused_chain": F.launches, "detect": D.launches, "place": D.place_launches,
-                "raw_chain": R.launches}
+    launches = launched(since, "fused_chain", "detect", "place", "raw_chain")
     for k, n in launches.items():
         check(n > 0, f"the raw path launched no {k} kernel")
 
@@ -872,7 +880,7 @@ def phase_gen(cap, dev):
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        F.launches = D.launches = D.place_launches = R.launches = G.launches = RG.launches = 0
+        since = spans.counters.snapshot()
         st = G.fused_gen_chain(GEN_SEED, B_GEN, *txc, snr_db=20.0, stream_sums=True)
         full = G.fused_gen_chain(GEN_SEED, B_GEN, *txc, snr_db=35.0)
         raw = RG.gen_raw_system(GEN_SEED, B_GEN, *txc, lts, equalize_with="h_mmse",
@@ -883,8 +891,8 @@ def phase_gen(cap, dev):
                                          out_dir=str(tmp / gen), gen=gen, device=dev)
                 for gen in S.GENERATORS}
         torch.cuda.synchronize()
-        launches = {"gen_chain": G.launches, "raw_gen_chain": RG.launches,
-                    "fused_chain": F.launches, "place": D.place_launches, "raw_chain": R.launches}
+        launches = launched(since, "gen_chain", "raw_gen_chain", "fused_chain", "place",
+                            "raw_chain")
         for k, n in launches.items():
             check(n > 0, f"the generative path launched no {k} kernel")
         records = {gen: read_stream(tmp / gen, N_STREAM) for gen in S.GENERATORS}
@@ -1079,11 +1087,11 @@ def phase_solve(cap, dev):
     del rp, rl
     torch.cuda.synchronize()
 
-    MS.launches = MS.dense_launches = 0
+    since = spans.counters.snapshot()
     h_dense = SCP.ps_mmse_dense(tx_blocks, rx_blocks, ow2, h_lt)
     out = RXP.rx_chain_freq(tx_pre, rx_pre, tx_blocks, rx_blocks, ow2, mmse_solver="dense_pallas")
     torch.cuda.synchronize()
-    launches = {"mmse_solve": MS.launches, "mmse_solve_dense": MS.dense_launches}
+    launches = launched(since, "mmse_solve", "mmse_solve_dense")
     for k, n in launches.items():
         check(n > 0, f"the dense MMSE path launched no {k} kernel")
 
@@ -1295,11 +1303,10 @@ def phase_bench(dev) -> dict:
         print(f"phase 11: {name}: {json.dumps(TP.compact(row), separators=(',', ':'))}", flush=True)
 
     torch.cuda.synchronize()
-    F.launches = D.launches = D.place_launches = R.launches = RG.launches = MS.launches = 0
+    since = spans.counters.snapshot()
     rows = TP.run(TP.DEFAULT_ROWS, iters=BENCH_ITERS, device=dev, log=log)
     torch.cuda.synchronize()
-    launches = {"fused_chain": F.launches, "place": D.place_launches, "raw_chain": R.launches,
-                "raw_gen_chain": RG.launches, "mmse_solve": MS.launches}
+    launches = launched(since, "fused_chain", "place", "raw_chain", "raw_gen_chain", "mmse_solve")
     for k, n in launches.items():
         check(n > 0, f"the bench rows launched no {k} kernel")
     line = json.dumps(TP.summary(rows, dev), separators=(",", ":"))
@@ -1358,10 +1365,10 @@ def phase_native_fused(dev) -> tuple[int, float]:
     (args,) = list(S.native_time_batches(1, B_GEN, seed=SEED))
     ins = [c.map(lambda t: t.to(dev)) for c in args]
     torch.cuda.synchronize()
-    F.launches = 0
+    since = spans.counters.snapshot()
     out = F.fused_rx_chain(*ins)
     torch.cuda.synchronize()
-    launches = F.launches
+    launches = launched(since, "fused_chain")["fused_chain"]
     check(launches > 0, "native_time_batches -> fused_rx_chain launched no fused_chain kernel")
     for k, v in out.items():
         for t in (v if isinstance(v, Cplx) else (v,)):
@@ -1450,7 +1457,7 @@ def phase_mesh_one(cap, dev, tmp: pathlib.Path) -> dict:
                                                 gen=gen, mesh=mesh, device=dev)
                  for gen in S.MESH_GENERATORS}
         torch.cuda.synchronize()
-        G.launches = RG.launches = MS.launches = 0
+        since = spans.counters.snapshot()
         out, mse = step_sm(*args)
         out_d, mse_d = step_dense(*dense_args)
         mesh_runs = {}
@@ -1461,8 +1468,7 @@ def phase_mesh_one(cap, dev, tmp: pathlib.Path) -> dict:
                 runs.append((summary, sample, state))
             mesh_runs[gen] = runs
         torch.cuda.synchronize()
-        launches = {"gen_chain": G.launches, "raw_gen_chain": RG.launches,
-                    "mmse_solve": MS.launches}
+        launches = launched(since, "gen_chain", "raw_gen_chain", "mmse_solve")
         for k, n in launches.items():
             check(n > 0, f"phase 14a launched no {k} kernel")
 
@@ -1543,7 +1549,7 @@ def mesh_two_rank(ref_path: str) -> dict:
                                               gen=gen, mesh=meshes[2, 1], device=dev)
                for gen in S.MESH_GENERATORS}
     torch.cuda.synchronize()
-    G.launches = RG.launches = MS.launches = 0
+    since = spans.counters.snapshot()
     res, calls = {"times": {}}, {}
     for (dp, blk), mesh in meshes.items():
         blk_rank = PM.axis(mesh, PM.BLK)[1]
@@ -1559,8 +1565,7 @@ def mesh_two_rank(ref_path: str) -> dict:
     for gen, (step, state) in streams.items():
         calls[gen] = step(0, state)
     torch.cuda.synchronize()
-    res["launches"] = {"gen_chain": G.launches, "raw_gen_chain": RG.launches,
-                       "mmse_solve": MS.launches}
+    res["launches"] = launched(since, "gen_chain", "raw_gen_chain", "mmse_solve")
 
     for key, value in calls.items():
         if key in S.MESH_GENERATORS:
@@ -1710,7 +1715,7 @@ def phase_cli(dev, tmp: pathlib.Path) -> dict:
     check("H100" in out, f"devices: {out!r}")
 
     torch.cuda.synchronize()
-    F.launches = D.place_launches = R.launches = G.launches = RG.launches = 0
+    since = spans.counters.snapshot()
     run_err = {}
     for mode in CLI_MODES:
         got = parse_run(cli_call(walls, f"run {mode}", "run", "--mode", mode))
@@ -1797,8 +1802,7 @@ def phase_cli(dev, tmp: pathlib.Path) -> dict:
     check(not torch.distributed.is_initialized(), "sweep left its world up")
 
     torch.cuda.synchronize()
-    launches = {"fused_chain": F.launches, "place": D.place_launches, "raw_chain": R.launches,
-                "gen_chain": G.launches, "raw_gen_chain": RG.launches}
+    launches = launched(since, "fused_chain", "place", "raw_chain", "gen_chain", "raw_gen_chain")
     for k, n in launches.items():
         check(n > 0, f"phase 15 launched no {k} kernel")
     print(f"phase 15: {card()}")
@@ -1836,8 +1840,7 @@ def phase_scripts(tmp: pathlib.Path) -> dict:
     import importlib
 
     torch.cuda.synchronize()
-    F.launches = D.launches = D.place_launches = R.launches = G.launches = RG.launches = 0
-    MS.launches = 0
+    since = spans.counters.snapshot()
     walls, docs = {}, {}
     t_all = time.perf_counter()
     for name, args, cut in SCRIPT_RUNS:
@@ -1854,9 +1857,8 @@ def phase_scripts(tmp: pathlib.Path) -> dict:
         print(f"phase 16: {name} {' '.join(args)} ({cut}), {walls[name]:.1f} s: "
               f"{buf.getvalue().strip().splitlines()[-1]}", flush=True)
     torch.cuda.synchronize()
-    launches = {"fused_chain": F.launches, "detect": D.launches, "place": D.place_launches,
-                "raw_chain": R.launches, "gen_chain": G.launches, "raw_gen_chain": RG.launches,
-                "mmse_solve": MS.launches}
+    launches = launched(since, "fused_chain", "detect", "place", "raw_chain", "gen_chain",
+                        "raw_gen_chain", "mmse_solve")
     for k, n in launches.items():
         check(n > 0, f"phase 16 launched no {k} kernel")
     stream = docs["stream"]["rows"]

@@ -1,0 +1,12 @@
+"""entry_launch_us: the host's time in an entry call's launch (the
+program's ``launch`` span directly inside its ``entry.*`` span: the
+pointer table, the device guard, the stream, the kernel's launch and its
+error check), the median over the calls whose entry span started in the
+traced slice, read from the program's span ring on the profiler's clock.
+Silent where the program records no such span."""
+
+from perfbench import program_spans
+
+
+def read(ctx):
+    return program_spans.part_us(ctx, "launch")

@@ -30,7 +30,7 @@ from tpu80211_torch.pipeline import raw as P
 from tpu80211_torch.pipeline import rx as RX
 from tpu80211_torch.pipeline import sc as SCH
 from tpu80211_torch.pipeline import stream as S
-from tpu80211_torch.utils import timing
+from tpu80211_torch.utils import spans, timing
 
 from _torch_inputs import (TOL, assert_matches, lane_major, lts_taps, make_frames, make_streams,
                            rel, to_np, torch_planes, with_cfo)
@@ -76,6 +76,11 @@ def frames():
             with_cfo(make_frames(seed=6, b=B, tx_const=True), EPS))
 
 
+def launched(kernel: str) -> int:
+    """Launches of ``kernel`` so far, from the program's counters."""
+    return spans.counters.snapshot().get(f"launch.{kernel}", 0)
+
+
 def _on(x, dtype, dev) -> Cplx:
     return torch_planes(lane_major(x), dtype).map(lambda t: t.to(dev))
 
@@ -97,10 +102,10 @@ def test_kernel_matches_plain(case, frames, dev):
             kw["lsb"] = float(lsb)
     else:
         tx = F.TxFrames(_on(tx_pkt, STORAGE[dtype], dev), _on(tx_lp, STORAGE[dtype], dev))
-    before = F.launches
+    before = launched("fused_chain")
     got = F.fused_chain(rp, rl, tx, consts, **kw)
     torch.cuda.synchronize()
-    assert F.launches == before + 1
+    assert launched("fused_chain") == before + 1
     want = F.fused_chain_plain(rp, rl, tx, consts, **kw)
     assert_matches(got, want, B, TOL[dtype])
     if kw.get("sync"):
@@ -116,14 +121,14 @@ def test_batch_major_entry_matches_plain(frames, dev):
     """The batch-major public entry launches the kernel once and agrees
     with the plain version."""
     tx_pkt, rx_pkt, tx_lp, rx_lp = frames[0]
-    before = F.launches
+    before = launched("fused_chain")
     got = F.fused_rx_chain(*(torch_planes(x).map(lambda t: t.to(dev))
                              for x in (tx_pkt, rx_pkt, tx_lp, rx_lp)), sync=True)
     want = F.fused_chain_plain(_on(rx_pkt, torch.float32, dev), _on(rx_lp, torch.float32, dev),
                                F.TxFrames(_on(tx_pkt, torch.float32, dev),
                                           _on(tx_lp, torch.float32, dev)),
                                F.chain_consts(dev), sync=True)
-    assert F.launches == before + 1
+    assert launched("fused_chain") == before + 1
     lane = {k: v if v is None or k in ("ow2", "cfo", "checksum") else
             v.map(lambda t: t.permute(1, 2, 0) if t.dim() == 3 else t.T) for k, v in got.items()}
     assert_matches(lane, want, B, TOL["f32"])
@@ -293,10 +298,10 @@ def _taps(dev) -> Cplx:
 @pytest.mark.parametrize("decimate", [False, 16, 32, 64])
 def test_detect_kernel_matches_plain(dtype, decimate, dev):
     x, offs, _ = _streams(dtype, dev)
-    before = D.launches
+    before = launched("detect")
     got = D.detect_streams(x, _taps(dev), decimate=decimate)
     torch.cuda.synchronize()
-    assert D.launches == before + 1
+    assert launched("detect") == before + 1
     want = D.detect_plain(x, _taps(dev), decimate=decimate)
     for k in ("detected", "coarse", "start"):
         assert torch.equal(got[k], getattr(want, k)), k
@@ -330,10 +335,10 @@ def test_place_kernel_matches_plain(sig_dtype, noise_dtype, dev):
     noise = Cplx(*(1e-4 * torch.randn(NS, B, generator=gen, device=dev).to(noise_dtype)
                    for _ in range(2)))
     offs = torch.randint(0, NS, (B,), generator=gen, device=dev, dtype=torch.int32)
-    before = D.place_launches
+    before = launched("place")
     got = D.place_streams(sig, noise, offs)
     torch.cuda.synchronize()
-    assert D.place_launches == before + 1
+    assert launched("place") == before + 1
     want = D.place_plain(sig, noise, offs)
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
 
@@ -347,10 +352,10 @@ def _check_place(sig_dtype, noise_dtype, ns: int, b: int, dev) -> None:
                    for _ in range(2)))
     offs = torch.randint(0, ns, (b,), generator=gen, device=dev, dtype=torch.int32)
     offs[0], offs[-1] = 0, ns - 1
-    before = D.place_launches
+    before = launched("place")
     got = D.place_streams(sig, noise, offs)
     torch.cuda.synchronize()
-    assert D.place_launches == before + 1
+    assert launched("place") == before + 1
     want = D.place_plain(sig, noise, offs)
     assert got.re.dtype == sig_dtype
     assert torch.equal(got.re, want.re) and torch.equal(got.im, want.im)
@@ -408,10 +413,10 @@ def test_raw_kernel_matches_plain(case, dev):
     dtype = kw.pop("dtype")
     x, offs, lsb = _streams(dtype, dev, cfo=EPS if kw.get("sync") else 0.0)
     txc = _spectra(dev)
-    before = R.launches
+    before = launched("raw_chain")
     got = R.raw_rx_txconst_fused(x, _taps(dev), *txc, lsb=lsb, **kw)
     torch.cuda.synchronize()
-    assert R.launches == before + 1
+    assert launched("raw_chain") == before + 1
     want = R.raw_chain_plain(x, _taps(dev), *txc, lsb=lsb, **kw)
     for k in ("detected", "start"):
         assert torch.equal(got[k], want[k]), k
@@ -489,12 +494,12 @@ def test_staged_windows_match_plain(case, dev):
     offs = _widest_union(ns, b) if kw.pop("widest", False) else None
     x, lsb = _raw_streams(dtype, dev, ns, b, offs, kw.pop("empty", ()))
     search, decimate = kw.pop("search", 192), kw.pop("decimate", 16)
-    before = (D.launches, R.launches)
+    before = (launched("detect"), launched("raw_chain"))
     got = D.detect_streams(x, _taps(dev), search=search, decimate=decimate)
     raw = R.raw_rx_txconst_fused(x, _taps(dev), *_spectra(dev), search=search,
                                  decimate=decimate, lsb=lsb, stream_sums=True)
     torch.cuda.synchronize()
-    assert (D.launches, R.launches) == (before[0] + 1, before[1] + 1)
+    assert (launched("detect"), launched("raw_chain")) == (before[0] + 1, before[1] + 1)
     want = D.detect_plain(x, _taps(dev), search=search, decimate=decimate)
     raw_want = R.raw_chain_plain(x, _taps(dev), *_spectra(dev), search=search,
                                  decimate=decimate, lsb=lsb, stream_sums=True)
@@ -565,10 +570,10 @@ def test_gen_kernel_matches_plain(case, stream_sums, dev):
     entries, eq at its type's entry, the checksum 1e-4 of the largest."""
     kw = dict(GEN_CASES[case], stream_sums=stream_sums)
     txc = _spectra(dev)
-    before = G.launches
+    before = launched("gen_chain")
     got = G.fused_gen_chain(3, GEN_B, *txc, **kw)
     torch.cuda.synchronize()
-    assert G.launches == before + 1
+    assert launched("gen_chain") == before + 1
     want = G.gen_chain_plain(3, GEN_B, *txc, **kw)
     tol = TOL["f32"]
     eq_tol = TOL["bf16" if kw.get("eq_dtype", torch.bfloat16) == torch.bfloat16 else "f32"]["eq"]
@@ -617,10 +622,10 @@ def test_gen_kernel_matches_plain_at_tap_counts(n_taps, monkeypatch, dev):
     monkeypatch.setattr(G, "channel_consts", lambda device, model=None: consts)
     txc = _spectra(dev)
     kw = dict(channel_model="E", snr_db=25.0)
-    before = G.launches
+    before = launched("gen_chain")
     got = G.fused_gen_chain(4, GEN_B, *txc, **kw)
     torch.cuda.synchronize()
-    assert G.launches == before + 1
+    assert launched("gen_chain") == before + 1
     want = G.gen_chain_plain(4, GEN_B, *txc, **kw)
     tol = TOL["f32"]
     for name in (*F.OUT_NAMES, "h_true", "eq"):
@@ -698,10 +703,10 @@ def test_raw_gen_kernel_matches_plain(case, dev):
     of the largest (deep fades amplify summation order in the blend)."""
     kw = RAW_GEN_CASES[case]
     txc, lts = _spectra(dev), _taps(dev)
-    before = RG.launches
+    before = launched("raw_gen_chain")
     got = RG.gen_raw_system(5, GEN_B, *txc, lts, return_field=True, **kw)
     torch.cuda.synchronize()
-    assert RG.launches == before + 1
+    assert launched("raw_gen_chain") == before + 1
     want = RG.gen_raw_plain(5, GEN_B, *txc, lts, return_field=True, **kw)
     for g, w in zip(got["field"], want["field"]):
         assert torch.equal(g, w)
@@ -731,11 +736,11 @@ def test_raw_gen_field_at_other_lengths(ns, cfo_khz, dev):
     in another order on each side (seed 11 has a sample one bf16 ulp apart,
     with the kernel of before this design too)."""
     txc, lts = _spectra(dev), _taps(dev)
-    before = RG.launches
+    before = launched("raw_gen_chain")
     got = RG.gen_raw_system(5, GEN_B, *txc, lts, ns=ns, cfo_khz=cfo_khz, equalize_with="h_mmse",
                             return_field=True)
     torch.cuda.synchronize()
-    assert RG.launches == before + 1
+    assert launched("raw_gen_chain") == before + 1
     draws = RG.raw_draws(5, GEN_B, G.channel_consts(dev).tscale.shape[0], ns, dev)
     field, _, offs, eps = RG.synthesize(draws, *txc, cfo_khz=cfo_khz)
     for g, w in zip(got["field"], field):
@@ -792,7 +797,7 @@ def test_mmse_solve_kernel_matches_plain(entry, method, dev):
     within 5e-5 of numpy's f64 solve (bench.py:179-183)."""
     u, rx, ow2 = _solve_systems(dev)
     a = M.rank1_systems(u, ow2)
-    before = (M.launches, M.dense_launches)
+    before = (launched("mmse_solve"), launched("mmse_solve_dense"))
     if entry == "fused":
         got = M.fused_rank1_solve(u, rx, ow2, method)
         want = M.fused_rank1_plain(u, rx, ow2, method)
@@ -800,7 +805,7 @@ def test_mmse_solve_kernel_matches_plain(entry, method, dev):
         got = M.solve_batched(a, rx[..., None], method)[..., 0]
         want = M.solve_batched_plain(a, rx[..., None], method)[..., 0]
     torch.cuda.synchronize()
-    assert (M.launches, M.dense_launches) == (before[0] + (entry == "fused"),
+    assert (launched("mmse_solve"), launched("mmse_solve_dense")) == (before[0] + (entry == "fused"),
                                               before[1] + (entry == "dense"))
     assert got.dtype == torch.complex64 and tuple(got.shape) == (B, 53)
     assert rel(to_np(got), to_np(want)) < 1e-4
@@ -838,10 +843,10 @@ def test_dense_mmse_paths_launch_the_kernels(dev):
     frames = make_frames(seed=12, b=64, snr_db=10.0)
     cpu = [torch.tensor(x) for x in frames]
     card = [t.to(dev) for t in cpu]
-    before = (M.launches, M.dense_launches)
+    before = (launched("mmse_solve"), launched("mmse_solve_dense"))
     got = RX.rx_chain(*card, mmse_solver="dense_pallas")
     torch.cuda.synchronize()
-    assert M.dense_launches == before[1] + 1
+    assert launched("mmse_solve_dense") == before[1] + 1
     want = RX.rx_chain(*cpu, mmse_solver="dense_pallas")
     assert rel(to_np(got.h_mmse), to_np(want.h_mmse)) < 1e-3
     tx_blocks, rx_blocks = SCH.extract_blocks(card[0]), SCH.extract_blocks(card[1])
@@ -849,7 +854,7 @@ def test_dense_mmse_paths_launch_the_kernels(dev):
     h = ps_mmse(tx_blocks, rx_blocks, ow2, h_lt, solver="dense_pallas")
     dense = SCH.ps_mmse_dense(tx_blocks, rx_blocks, ow2, h_lt)
     torch.cuda.synchronize()
-    assert (M.launches, M.dense_launches) == (before[0] + 1, before[1] + 2)
+    assert (launched("mmse_solve"), launched("mmse_solve_dense")) == (before[0] + 1, before[1] + 2)
     sm = SCH.ps_mmse_sm(tx_blocks, rx_blocks, ow2, h_lt)
     assert rel(to_np(h), to_np(sm)) < 1e-3 and rel(to_np(dense), to_np(sm)) < 1e-3
 
@@ -1102,10 +1107,10 @@ def test_shardmap_steps_on_card(nccl_one, dev):
     assert float(mse) == pytest.approx(float(ref.h_mmse.abs().square().mean()), rel=1e-4)
     dense_args = args[:4] + (torch.full_like(args[4], 0.25),)
     dense, _ = PM.rx_step_shardmap(nccl_one, solver="dense")
-    before = M.launches
+    before = launched("mmse_solve")
     out_d, mse_d = dense(*dense_args)
     torch.cuda.synchronize()
-    assert M.launches == before + 1
+    assert launched("mmse_solve") == before + 1
     out_s, mse_s = step(*dense_args)
     assert rel(to_np(out_d.h_mmse), to_np(out_s.h_mmse)) < 1e-4
     assert float(mse_d) == pytest.approx(float(mse_s), rel=1e-4)
@@ -1119,7 +1124,7 @@ def test_mesh_stream_step_on_card_is_the_single_chip_step(gen, nccl_one, dev):
     kw = dict(snr_db=30.0, gen=gen, device=dev)
     mstep, m0 = S.make_device_stream_step(GEN_B, mesh=nccl_one, **kw)
     step, s0 = S.make_device_stream_step(GEN_B, **kw)
-    before = (G.launches, RG.launches)
+    before = (launched("gen_chain"), launched("raw_gen_chain"))
     for i in range(2):
         msum, msample, m0 = mstep(i, m0)
         ssum, ssample, s0 = step(i, s0)
@@ -1127,7 +1132,7 @@ def test_mesh_stream_step_on_card_is_the_single_chip_step(gen, nccl_one, dev):
         for k, v in msum.items():
             assert torch.equal(v, ssum[k]), (i, k)
         assert torch.equal(msample.re, ssample.re) and torch.equal(m0, s0)
-    assert (G.launches, RG.launches) == (before[0] + 4 * (gen == "kernel"),
+    assert (launched("gen_chain"), launched("raw_gen_chain")) == (before[0] + 4 * (gen == "kernel"),
                                          before[1] + 4 * (gen == "kernel_raw"))
 
 
@@ -1175,10 +1180,10 @@ def test_cli_raw_on_card_through_the_raw_chain_kernel(dev, capsys):
 
     from tpu80211_torch import cli
 
-    before = R.launches
+    before = launched("raw_chain")
     assert cli.main(["raw", "--batch", "200", "--seed", "3"]) == 0
     torch.cuda.synchronize()
-    assert R.launches == before + 1
+    assert launched("raw_chain") == before + 1
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert cli.main(["raw", "--batch", "200", "--seed", "3", "--device", "cpu"]) == 0
     want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -1187,3 +1192,61 @@ def test_cli_raw_on_card_through_the_raw_chain_kernel(dev, capsys):
     for k in ("detected", "timing_err_min", "timing_err_max"):
         assert got[k] == want[k], k
     assert got["h_mmse_mean_abs"] == pytest.approx(want["h_mmse_mean_abs"], rel=1e-3)
+
+
+# -- the program's spans and counters on the card --------------------------------
+
+
+@pytest.mark.cuda
+def test_traced_entry_holds_one_check_outputs_and_launch(frames, dev):
+    """Under the profiler one `fused_rx_chain_txconst` call records its
+    entry span and, inside it, exactly one each of check, outputs and
+    launch; the profiler's trace carries them under the same names, and the
+    chain kernel starts on the card after the launch span starts on the
+    host (one clock)."""
+    _, rx_pkt, _, rx_lp = frames[1]
+    txc = _spectra(dev)
+    rp, rl = _on(rx_pkt, torch.bfloat16, dev), _on(rx_lp, torch.bfloat16, dev)
+    F.fused_rx_chain_txconst(*txc, rp, rl, serve=True)   # the library, the constants
+    torch.cuda.synchronize()
+    spans.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        F.fused_rx_chain_txconst(*txc, rp, rl, serve=True)
+        torch.cuda.synchronize()
+    recs = spans.records()
+    (entry,) = [r for r in recs if r.name == "entry.fused_rx_chain_txconst"]
+    inside = [r for r in recs if r.call_id == entry.call_id and r.parent == entry.name]
+    assert sorted(r.name for r in inside) == ["check", "launch", "outputs"]
+    assert all(entry.start_ns <= r.start_ns <= r.end_ns <= entry.end_ns for r in inside)
+    events = list(prof.profiler.kineto_results.events())
+    names = {e.name() for e in events}
+    assert {spans.PREFIX + n for n in (entry.name, "check", "outputs", "launch")} <= names
+    (launch,) = [r for r in inside if r.name == "launch"]
+    kernels = [e.start_ns() for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "fused_chain_kernel" in e.name()]
+    assert len(kernels) == 1 and kernels[0] > launch.start_ns
+
+
+@pytest.mark.cuda
+def test_counters_count_each_call_and_its_launches(frames, dev):
+    """An aligned call counts one call and one launch (the chain kernel); a
+    raw call one call and two (the raw kernel, then ``det != 0``)."""
+    def launches():
+        return sum(v for k, v in spans.counters.snapshot().items() if k.startswith("launch."))
+
+    def calls(entry):
+        return spans.counters.snapshot().get(f"call.{entry}", 0)
+
+    _, rx_pkt, _, rx_lp = frames[1]
+    txc = _spectra(dev)
+    rp, rl = _on(rx_pkt, torch.bfloat16, dev), _on(rx_lp, torch.bfloat16, dev)
+    before = launches(), calls("fused_rx_chain_txconst")
+    F.fused_rx_chain_txconst(*txc, rp, rl, serve=True)
+    assert (launches(), calls("fused_rx_chain_txconst")) == (before[0] + 1, before[1] + 1)
+    x, _, lsb = _streams("bf16", dev)
+    before = launches(), calls("raw_rx_txconst_fused")
+    R.raw_rx_txconst_fused(x, _taps(dev), *txc, lsb=lsb)
+    assert (launches(), calls("raw_rx_txconst_fused")) == (before[0] + 2, before[1] + 1)
+    torch.cuda.synchronize()

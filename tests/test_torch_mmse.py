@@ -16,6 +16,7 @@ import torch
 from tpu80211.kernels import mmse_solve as jms
 from tpu80211_torch.kernels import mmse_solve as M
 from tpu80211_torch.kernels import mmse_solve_variants as V
+from tpu80211_torch.utils import spans
 
 from _torch_inputs import jax_planes, rel, to_np
 
@@ -103,16 +104,22 @@ def test_plain_versions_leave_inputs_alone():
     assert all(torch.equal(t, k) for t, k in zip((tu, trx, a), keep))
 
 
+def _launches() -> tuple[int, int]:
+    """The fused and the dense solve's launch counts so far."""
+    c = spans.counters.snapshot()
+    return c.get("launch.mmse_solve", 0), c.get("launch.mmse_solve_dense", 0)
+
+
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     u, rx, ow2, _ = _systems(seed=6, b=3)
-    before = (M.launches, M.dense_launches)
+    before = _launches()
     for method in M.METHODS:
         got = M.fused_rank1_solve(torch.tensor(u), torch.tensor(rx), torch.tensor(ow2), method)
         assert torch.equal(got, M.fused_rank1_plain(torch.tensor(u), torch.tensor(rx),
                                                     torch.tensor(ow2), method))
         a, r = torch.tensor(_dense(u, ow2)), torch.tensor(rx[..., None])
         assert torch.equal(M.solve_batched(a, r, method), M.solve_batched_plain(a, r, method))
-    assert (M.launches, M.dense_launches) == before
+    assert _launches() == before
 
 
 def test_launcher_refuses_cpu_tensors():

@@ -203,7 +203,19 @@ def test_timeit_on_the_cpu_counts_calls():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The Chrome trace lands in the caller's directory and carries the
+    program's spans: here the entry span of a CPU chain call."""
+    from tpu80211_torch.kernels import fused_chain as F
+
+    from _torch_inputs import lane_major, make_frames, torch_planes
+
+    tx_pkt, rx_pkt, tx_lp, rx_lp = make_frames(3, 4, tx_const=True)
+    txc = F.tx_spectra(torch_planes(tx_pkt[0]), torch_planes(tx_lp[0]))
     with timing.trace(str(tmp_path / "t")) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
+        F.fused_rx_chain_txconst(*txc, torch_planes(lane_major(rx_pkt)),
+                                 torch_planes(lane_major(rx_lp)))
     assert prof.key_averages() is not None
-    assert json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
+    events = json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
+    assert events
+    assert "tpu80211.entry.fused_rx_chain_txconst" in {e.get("name") for e in events}

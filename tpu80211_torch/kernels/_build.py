@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import tempfile
 
+from tpu80211_torch.utils import spans
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,7 +60,8 @@ def build(source: pathlib.Path, build_dir: pathlib.Path = BUILD_DIR) -> pathlib.
 def build_all(sources, build_dir: pathlib.Path = BUILD_DIR) -> list[pathlib.Path]:
     """Compile every source whose library is missing, one ``nvcc`` each, all
     started together; returns the libraries' paths.  Raises if any build
-    fails (after every started build has ended)."""
+    fails (after every started build has ended).  Each compile is a set-up
+    span, ``setup.build.<source>``, from its start to its end."""
     libs = [library_path(pathlib.Path(src), build_dir) for src in sources]
     todo = [(pathlib.Path(src), lib) for src, lib in zip(sources, libs) if not lib.exists()]
     if not todo:
@@ -67,17 +70,20 @@ def build_all(sources, build_dir: pathlib.Path = BUILD_DIR) -> list[pathlib.Path
     build_dir.mkdir(parents=True, exist_ok=True)
     # build under temporary names, then rename: a concurrent process sees
     # either no library or a whole one
-    running = []
+    running, timing = [], []
     try:
         for src, lib in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
             os.close(fd)
+            timing.append(spans.setup_span(f"build.{src.stem}", leaf=True))
+            timing[-1].__enter__()
             running.append((src, lib, tmp, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         errors = []
         for src, lib, tmp, proc in running:
             out, err = proc.communicate()
+            timing.pop(0).__exit__(None, None, None)
             if proc.returncode != 0:
                 errors.append(f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
                               f"{err}{out}")
@@ -86,6 +92,8 @@ def build_all(sources, build_dir: pathlib.Path = BUILD_DIR) -> list[pathlib.Path
         if errors:
             raise RuntimeError("\n".join(errors))
     finally:
+        for span in timing:
+            span.__exit__(None, None, None)
         for _, _, tmp, proc in running:
             if proc.poll() is None:
                 proc.kill()
@@ -98,5 +106,7 @@ def build_all(sources, build_dir: pathlib.Path = BUILD_DIR) -> list[pathlib.Path
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``.  Callers that load
-    several may first build them in parallel with ``build_all``."""
-    return ctypes.CDLL(str(build(CSRC / f"{name}.cu")))
+    several may first build them in parallel with ``build_all``.  A set-up
+    span, ``setup.load.<name>``, covers it."""
+    with spans.setup_span(f"load.{name}"):
+        return ctypes.CDLL(str(build(CSRC / f"{name}.cu")))

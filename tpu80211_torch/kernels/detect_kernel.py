@@ -32,17 +32,16 @@ from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.kernels import _build, require_cuda
 from tpu80211_torch.kernels.fused_chain import pointer_table, raise_on_error
 from tpu80211_torch.ops.detect import DEFAULT_THRESHOLD, LAG, WIN
+from tpu80211_torch.utils import spans
 
 FRAME = C.PREAMBLE_SAMPLES + C.PACKET_SAMPLES  # 1360 rows cut per stream
 MIN_NS = -(-FRAME // LAG) * LAG                # 1408: the least multiple of 64 that holds a frame
 MF_CHUNK = 2 * LAG                             # matched-filter rows per band product
 MAX_SEARCH = 512  # the matched filter's window must fit one block's shared memory
 STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-# kernel launches since the count was last set to 0: detection (with or
-# without alignment) and placement (the plain versions never count)
-launches = 0
-place_launches = 0
+_count_detect = spans.counter("launch.detect")
+_count_place = spans.counter("launch.place")
+_count_torch = spans.counter("launch.torch")
 
 
 class Detection(NamedTuple):
@@ -295,7 +294,6 @@ def _launch_detect(x: Cplx, lts_ref: Cplx, threshold, search, advance, decimate,
                    align: bool, lib=None):
     """One launch; ``lib`` = `bind` of another build of the source (the card
     probe's variants), else the package's own."""
-    global launches
     check_streams(x, lts_ref, search)
     require_cuda(x.re)
     stride, decimated = stride_of(decimate)
@@ -313,8 +311,9 @@ def _launch_detect(x: Cplx, lts_ref: Cplx, threshold, search, advance, decimate,
                                 int(search), int(advance), stride, decimated,
                                 torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "detect", lib.detect_error_string)
-    launches += 1
+    _count_detect()
     det, coarse, start, metric = rows
+    _count_torch()   # det != 0: one elementwise kernel
     res = Detection(det != 0, coarse, start, metric)
     if not align:
         return res
@@ -366,7 +365,6 @@ def place_streams(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> Cplx:
 def _launch_place(sig: Cplx, noise: Cplx, offs: torch.Tensor, lib=None) -> Cplx:
     """One launch; ``lib`` = `bind` of another build of the source (the card
     probe's variants), else the package's own."""
-    global place_launches
     _check_place(sig, noise, offs)
     require_cuda(sig.re)
     for t in (*sig, *noise):
@@ -382,5 +380,5 @@ def _launch_place(sig: Cplx, noise: Cplx, offs: torch.Tensor, lib=None) -> Cplx:
         err = lib.place_launch(ptrs, len(ptrs), STORAGE[sig.re.dtype], STORAGE[noise.re.dtype],
                                ns, b, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "place", lib.detect_error_string)
-    place_launches += 1
+    _count_place()
     return out

@@ -32,6 +32,7 @@ from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.kernels import _build, require_cuda
 from tpu80211_torch.ops import specmats
 from tpu80211_torch.ops.interp import interp_matrix
+from tpu80211_torch.utils import spans
 
 INTERP_KINDS = ("linear", "cubic", "sinc", "spline", "wiener")
 NB_PAD = 16  # tx-const spectra columns (15 blocks, padded as the JAX package)
@@ -41,10 +42,8 @@ OUT_NAMES = ("h_lt", "h_linear", "h_cubic", "h_sinc", "h_spline",
 SERVE_DROP = ("h_lt", "h_linear", "h_cubic", "h_sinc", "h_spline")
 EQUALIZE_WITH = ("h_linear", "h_wiener", "h_mmse")
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-
-# kernel launches since the count was last set to 0 (the wrapper adds one
-# per launch; the plain version never does)
-launches = 0
+_count_call = spans.counter("call.fused_rx_chain_txconst")
+_count_launch = spans.counter("launch.fused_chain")
 
 
 class ChainConsts(NamedTuple):
@@ -93,29 +92,31 @@ def chain_consts(device: torch.device | str, wiener_model: str | None = None,
 
 @functools.lru_cache(maxsize=None)
 def _chain_consts(device: torch.device, wiener_model, wiener_snr_db) -> ChainConsts:
-    return ChainConsts(*(torch.tensor(a, dtype=torch.float32, device=device)
-                         for a in _consts_np(wiener_model, wiener_snr_db)))
+    with spans.setup_span("consts"):
+        return ChainConsts(*(torch.tensor(a, dtype=torch.float32, device=device)
+                             for a in _consts_np(wiener_model, wiener_snr_db)))
 
 
 def tx_spectra(tx_pkt: Cplx, tx_lp: Cplx) -> TxConst:
     """Precompute the tx-constant spectra from one packet (1200,) and its
     long preamble (160,): an f32 DFT, no bf16 rounding (the constants are
     read once per block of frames, so precision is free)."""
-    dev = tx_pkt.re.device
-    f32 = torch.float32
-    wre, wim, _, _ = chain_consts(dev)
-    pkt = tx_pkt.map(lambda x: x.to(f32))
-    win = pkt.map(lambda x: x.view(C.N_BLOCKS, C.SAMP_PER_BLOCK)[:, C.N_CP:].T)  # (64, 15)
-    br = wre.T @ win.re - wim.T @ win.im
-    bi = wre.T @ win.im + wim.T @ win.re
-    pad = torch.zeros((C.N_SC, NB_PAD - C.N_BLOCKS), dtype=f32, device=dev)
-    lp = tx_lp.map(lambda x: x.to(f32))
-    ar = (lp.re[32:96] + lp.re[96:160]) * 0.5
-    ai = (lp.im[32:96] + lp.im[96:160]) * 0.5
-    pr = wre.T @ ar - wim.T @ ai
-    pi = wre.T @ ai + wim.T @ ar
-    return TxConst(Cplx(torch.cat([br, pad], 1), torch.cat([bi, pad], 1)),
-                   Cplx(pr[:, None], pi[:, None]))
+    with spans.setup_span("tx_spectra"):
+        dev = tx_pkt.re.device
+        f32 = torch.float32
+        wre, wim, _, _ = chain_consts(dev)
+        pkt = tx_pkt.map(lambda x: x.to(f32))
+        win = pkt.map(lambda x: x.view(C.N_BLOCKS, C.SAMP_PER_BLOCK)[:, C.N_CP:].T)  # (64, 15)
+        br = wre.T @ win.re - wim.T @ win.im
+        bi = wre.T @ win.im + wim.T @ win.re
+        pad = torch.zeros((C.N_SC, NB_PAD - C.N_BLOCKS), dtype=f32, device=dev)
+        lp = tx_lp.map(lambda x: x.to(f32))
+        ar = (lp.re[32:96] + lp.re[96:160]) * 0.5
+        ai = (lp.im[32:96] + lp.im[96:160]) * 0.5
+        pr = wre.T @ ar - wim.T @ ai
+        pi = wre.T @ ai + wim.T @ ar
+        return TxConst(Cplx(torch.cat([br, pad], 1), torch.cat([bi, pad], 1)),
+                       Cplx(pr[:, None], pi[:, None]))
 
 
 def quantize_i8(x: Cplx, lsb=None) -> tuple[Cplx, torch.Tensor]:
@@ -196,7 +197,9 @@ def fused_chain(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
     if rx_pkt.re.device.type == "cpu":
         return fused_chain_plain(rx_pkt, rx_lp, tx, consts, eps=eps, lsb=lsb, serve=serve,
                                  equalize_with=equalize_with, sync=sync, evm_sums=evm_sums)
+    spans.phase("check")
     _check(rx_pkt, rx_lp, tx, consts, equalize_with)
+    spans.phase()
     require_cuda(rx_pkt.re)
     return _launch(rx_pkt, rx_lp, tx, consts, float(eps), float(lsb), serve,
                    equalize_with, sync, evm_sums)
@@ -283,21 +286,23 @@ def _launch(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
             equalize_with: str, sync: bool, evm_sums: bool, kernel=None) -> dict:
     """One launch; ``kernel`` = `bind` of another build of the source (the
     card probe's variants), else the package's own."""
-    global launches
     fn, err_string = kernel or _kernel_fn()
     dev = rx_pkt.re.device
     b = rx_pkt.re.shape[-1]
     storage = rx_pkt.re.dtype
     eq_dtype = torch.bfloat16 if storage == torch.int8 else storage
-    out, outs = chain_outputs(b, dev, eq_dtype, serve, True, evm_sums)
     tx_a, tx_b = tx
+    spans.phase("outputs")
+    out, outs = chain_outputs(b, dev, eq_dtype, serve, True, evm_sums)
+    spans.phase("launch")
     ptrs = pointer_table([*rx_pkt, *rx_lp, *tx_a, *tx_b, *consts, *outs])
     with torch.cuda.device(dev):
         err = fn(ptrs, len(ptrs), _STORAGE[storage], isinstance(tx, TxConst),
                  EQUALIZE_WITH.index(equalize_with), b, eps, lsb, sync, evm_sums,
                  torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "fused_chain", err_string)
-    launches += 1
+    spans.phase()
+    _count_launch()
     return out
 
 
@@ -504,10 +509,12 @@ def fused_rx_chain_txconst(txs: Cplx, tpre: Cplx, rx_pkt: Cplx, rx_lp: Cplx,
     ow2, cfo, checksum); the diagnostic planes' keys are None, and the
     checksum still covers them.  ``lsb``: ADC step for int8 sample planes
     (`quantize_i8`); eq then comes out bfloat16."""
-    consts = chain_consts(rx_pkt.re.device, wiener_model, wiener_snr_db)
-    return fused_chain(rx_pkt, rx_lp, TxConst(txs, tpre), consts, eps=eps,
-                       lsb=lsb, serve=serve, equalize_with=equalize_with,
-                       sync=sync)
+    _count_call()
+    with spans.span("entry.fused_rx_chain_txconst"):
+        consts = chain_consts(rx_pkt.re.device, wiener_model, wiener_snr_db)
+        return fused_chain(rx_pkt, rx_lp, TxConst(txs, tpre), consts, eps=eps,
+                           lsb=lsb, serve=serve, equalize_with=equalize_with,
+                           sync=sync)
 
 
 def fused_rx_chain_lane_major(tx_pkt: Cplx, rx_pkt: Cplx, tx_lp: Cplx,

@@ -38,6 +38,7 @@ from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.kernels import _build, require_cuda
 from tpu80211_torch.kernels import fused_chain as F
 from tpu80211_torch.ops import channel
+from tpu80211_torch.utils import spans
 
 LANES = 128  # the stream record's frames, and the batch granule
 N_TAPS = channel.LEGACY_N_TAPS
@@ -45,10 +46,8 @@ RMS_SPREAD = channel.LEGACY_RMS_SAMPLES  # the legacy profile's rms delay spread
 INTERP_KINDS = F.INTERP_KINDS
 _OUT_NAMES = F.OUT_NAMES
 N_SUMS = len(_OUT_NAMES) + 1  # stream sums: 7 estimators' Σ|ĥ − h|², then Σ|h|²
-
-# kernel launches since the count was last set to 0 (the plain version never
-# counts)
-launches = 0
+_count_launch = spans.counter("launch.gen_chain")
+_count_torch = spans.counter("launch.torch")
 
 # -- the counter-based generator (csrc/gen.cuh) ----------------------------------------
 
@@ -427,7 +426,6 @@ def _launch(seed, batch, txs, tpre, snr_db, eq_dtype, channel_model, stream_sums
             kernel=None) -> dict:
     """One launch; ``kernel`` = `bind` of another build of the source (the
     card probe's variants), else the package's own."""
-    global launches
     _check(batch, txs, tpre, eq_dtype)
     require_cuda(txs.re)
     fn, err_string = kernel or _kernel_fn()
@@ -454,7 +452,8 @@ def _launch(seed, batch, txs, tpre, snr_db, eq_dtype, channel_model, stream_sums
         err = fn(ptrs, len(ptrs), batch, cc.tscale.shape[0], freq_noise_scale(snr_db),
                  eq_dtype == torch.bfloat16, torch.cuda.current_stream(dev).cuda_stream)
     F.raise_on_error(err, "gen_chain", err_string)
-    launches += 1
+    _count_launch()
     if stream_sums:
+        _count_torch()   # the sum over lanes: one reduction kernel
         out["sums"] = per_frame.view(N_SUMS, batch // LANES, LANES).sum(1)
     return out

@@ -42,14 +42,12 @@ import torch
 from tpu80211_torch import constants as C
 from tpu80211_torch.kernels import _build, require_cuda
 from tpu80211_torch.kernels.fused_chain import raise_on_error
+from tpu80211_torch.utils import spans
 
 N = C.N_SC
 METHODS = ("gauss", "chol")
-
-# kernel launches since the count was last set to 0: the fused rank-1
-# solve and the dense solve (the plain versions never count)
-launches = 0
-dense_launches = 0
+_count_fused = spans.counter("launch.mmse_solve")
+_count_dense = spans.counter("launch.mmse_solve_dense")
 
 
 def _recip(p: torch.Tensor) -> torch.Tensor:
@@ -224,7 +222,6 @@ def _launch(mat: torch.Tensor, rhs: torch.Tensor, ow2: torch.Tensor | None,
             method: str) -> torch.Tensor:
     """One launch over every system: ``mat`` is u (S, 53) with ``ow2`` (S,)
     (the fused kernel) or the systems (S, 53, 53) with ``ow2`` None."""
-    global launches, dense_launches
     for t in (mat, rhs, ow2):
         if t is not None:
             require_cuda(t)
@@ -243,8 +240,5 @@ def _launch(mat: torch.Tensor, rhs: torch.Tensor, ow2: torch.Tensor | None,
                  z.data_ptr(), rhs.shape[0], METHODS.index(method),
                  torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(err, "mmse_solve", err_string)
-    if ow2 is None:
-        dense_launches += 1
-    else:
-        launches += 1
+    (_count_dense if ow2 is None else _count_fused)()
     return z

@@ -23,10 +23,11 @@ from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.kernels import _build, require_cuda
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
+from tpu80211_torch.utils import spans
 
-# kernel launches since the count was last set to 0 (the plain version
-# never counts)
-launches = 0
+_count_call = spans.counter("call.raw_rx_txconst_fused")
+_count_launch = spans.counter("launch.raw_chain")
+_count_torch = spans.counter("launch.torch")
 
 
 def _check_tx(x: Cplx, txs: Cplx, tpre: Cplx, equalize_with: str) -> None:
@@ -83,9 +84,11 @@ def raw_rx_txconst_fused(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx,
     kw = dict(threshold=threshold, search=search, advance=advance, eps=eps, sync=sync,
               serve=serve, wiener_model=wiener_model, wiener_snr_db=wiener_snr_db, lsb=lsb,
               stream_sums=stream_sums, equalize_with=equalize_with, decimate=decimate)
-    if x.re.device.type == "cpu":
-        return raw_chain_plain(x, lts_ref, txs, tpre, **kw)
-    return _launch(x, lts_ref, txs, tpre, **kw)
+    _count_call()
+    with spans.span("entry.raw_rx_txconst_fused"):
+        if x.re.device.type == "cpu":
+            return raw_chain_plain(x, lts_ref, txs, tpre, **kw)
+        return _launch(x, lts_ref, txs, tpre, **kw)
 
 
 def bind(lib):
@@ -132,10 +135,11 @@ def _launch(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx, threshold, search, ad
             decimate, kernel=None) -> dict:
     """One launch; ``kernel`` = `bind` of another build of the source (the
     card probe's variants), else the package's own."""
-    global launches
     thr = D.DEFAULT_THRESHOLD if threshold is None else threshold
+    spans.phase("check")
     D.check_streams(x, lts_ref, search)
     _check_tx(x, txs, tpre, equalize_with)
+    spans.phase()
     require_cuda(x.re)
     stride, decimated = D.stride_of(decimate)
     fn, err_string = kernel or _kernel_fn()
@@ -144,15 +148,19 @@ def _launch(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx, threshold, search, ad
     storage = x.re.dtype
     eq_dtype = torch.bfloat16 if storage == torch.int8 else storage
     consts = F.chain_consts(dev, wiener_model, wiener_snr_db)
+    spans.phase("outputs")
     out, outs = F.chain_outputs(b, dev, eq_dtype, serve, not stream_sums, stream_sums)
     rows = D.detection_rows(b, dev)
+    spans.phase("launch")
     ptrs = F.pointer_table([*x, *lts_ref, *txs, *tpre, *consts, *outs, *rows])
     with torch.cuda.device(dev):
         err = fn(ptrs, len(ptrs), D.STORAGE[storage], F.EQUALIZE_WITH.index(equalize_with),
                  b, ns, float(eps), float(lsb), sync, stream_sums, float(thr), int(search),
                  int(advance), stride, decimated, torch.cuda.current_stream(dev).cuda_stream)
     F.raise_on_error(err, "raw_chain", err_string)
-    launches += 1
+    spans.phase()
+    _count_launch()
     det, coarse, start, metric = rows
+    _count_torch()   # det != 0: one elementwise kernel
     out.update(detected=det != 0, coarse=coarse, start=start, metric=metric)
     return out

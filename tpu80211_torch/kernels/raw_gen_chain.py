@@ -39,6 +39,7 @@ from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
 from tpu80211_torch.kernels import gen_chain as G
 from tpu80211_torch.ops import channel
+from tpu80211_torch.utils import spans
 
 LANES = G.LANES
 MIN_OFFSET = 40           # the earliest frame start in a stream
@@ -46,10 +47,8 @@ FRAME = D.FRAME           # 1360 rows: long preamble + packet
 SEARCH, ADVANCE = 192, 4  # the detector's fine window and timing advance
 N_DISTINCT = (1 + C.N_BLOCKS) * C.N_FFT  # a frame's distinct samples: LTS and blocks
 _TWO_PI_F32 = float(np.float32(2.0 * np.pi))
-
-# kernel launches since the count was last set to 0 (the plain version never
-# counts)
-launches = 0
+_count_launch = spans.counter("launch.raw_gen_chain")
+_count_torch = spans.counter("launch.torch")
 
 
 @functools.lru_cache(maxsize=None)
@@ -264,7 +263,6 @@ def _launch(seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshol
             equalize_with, cfo_khz, return_field, kernel=None) -> dict:
     """One launch; ``kernel`` = `bind` of another build of the source (the
     card probe's variants), else the package's own."""
-    global launches
     _check(batch, ns, txs, tpre, lts_ref, equalize_with, cfo_khz)
     require_cuda(txs.re)
     fn, err_string = kernel or _kernel_fn()
@@ -288,8 +286,9 @@ def _launch(seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshol
                  cfo_scale(cfo_khz), F.EQUALIZE_WITH.index(equalize_with), float(threshold),
                  SEARCH, ADVANCE, stride, torch.cuda.current_stream(dev).cuda_stream)
     F.raise_on_error(err, "raw_gen_chain", err_string)
-    launches += 1
+    _count_launch()
     det, _, start, metric = det_rows
+    _count_torch()   # det != 0: one elementwise kernel
     out.update(detected=det != 0, start=start, metric=metric, offsets=offs, h_true=h_true,
                cfo_true=cfo_true)
     if return_field:

@@ -14,7 +14,11 @@ The counterpart of ``tpu80211/utils/timing.py``:
   the bytes and operations of a call, against the H100's published peaks
   (`CHIP_PEAKS`);
 * `rx_chain_cost`: the split-complex chain's operation and byte model;
-* `trace`: a ``torch.profiler`` scope that writes a Chrome trace;
+* `trace`: a ``torch.profiler`` scope that writes a Chrome trace, with
+  the program's spans (`tpu80211_torch.utils.spans`) in it.  Unlike the
+  JAX package's ``trace``, whose ``logdir`` defaults to one fixed
+  directory, it has no default: callers that shared one directory
+  overwrote each other's trace;
 * `card`: the card's name and power limit, as ``nvidia-smi`` gives them.
 """
 
@@ -26,7 +30,6 @@ import json
 import pathlib
 import statistics
 import subprocess
-import tempfile
 import time
 from typing import Any, Callable
 
@@ -176,13 +179,14 @@ def rx_chain_cost(batch: int) -> dict:
 
 
 @contextlib.contextmanager
-def trace(logdir: str | None = None):
+def trace(logdir: str | pathlib.Path):
     """A ``torch.profiler`` scope over the host and, where there is one, the
     card; on exit it writes ``trace.json`` (Chrome trace format) into
-    ``logdir`` (default: a directory under the temporary directory).
-    Yields the profiler, whose ``key_averages()`` sums the time by
+    ``logdir``, the caller's own directory.  The program's spans run while
+    the profiler does, so the trace holds them as ``tpu80211.<span>``
+    events.  Yields the profiler, whose ``key_averages()`` sums the time by
     kernel."""
-    out = pathlib.Path(logdir or pathlib.Path(tempfile.gettempdir()) / "tpu80211_torch-trace")
+    out = pathlib.Path(logdir)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
