@@ -262,6 +262,110 @@ def test_chain_dft_runs_on_the_tensor_cores(dev):
         assert "HMMA" not in sass[name], name
 
 
+# -- the derotation: each sync kernel against its twin built with the library's
+#    sincos for every derotated sample (the body before the phase factors) -------
+
+@pytest.fixture(scope="module")
+def library_twins(tmp_path_factory):
+    """(fused_chain, raw_chain) bound from builds with the chain probe's
+    ``library_sincos`` edit."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu80211_torch.kernels import _variants
+    from tpu80211_torch.kernels import fused_chain_variants as FV
+    edits = {"twin": {FV.HEADER: FV.TREE_DIAGNOSTICS["library_sincos"]}}
+    out = tmp_path_factory.mktemp("library_twins")
+    with ThreadPoolExecutor(2) as pool:
+        fused, raw = pool.map(lambda src: _variants.build(src, edits, out / src.stem)["twin"][0],
+                              (FV.SOURCE, FV.RAW_SOURCE))
+    return F.bind(fused), R.bind(raw)
+
+
+def _same_bits(got: dict, want: dict) -> None:
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        pairs = zip(v, want[k]) if isinstance(v, Cplx) else [(v, want[k])]
+        for x, y in pairs:
+            assert (x is None and y is None) or torch.equal(x, y), k
+
+
+EDGE_CFO = 0.0075  # 0.96 / 128: angles up to 65 rad; the estimate wraps at 1/128
+SYNC_TWIN_CASES = {
+    "bf16-near-1/128": dict(dtype="bf16", cfo=EDGE_CFO),
+    "int8-near-1/128": dict(dtype="int8", cfo=EDGE_CFO),
+    "f32-near-1/128": dict(dtype="f32", cfo=-EDGE_CFO),
+    "bf16-zero": dict(dtype="bf16", cfo=0.0),
+    "int8-zero": dict(dtype="int8", cfo=0.0),
+    "f32-zero": dict(dtype="f32", cfo=0.0),
+    "bf16-rows-near-1/128": dict(dtype="bf16", cfo=-EDGE_CFO, b=999),
+    "per-frame-bf16-near-1/128": dict(dtype="bf16", cfo=EDGE_CFO, mode="frames"),
+    "per-frame-f32-zero": dict(dtype="f32", cfo=0.0, mode="frames"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SYNC_TWIN_CASES))
+def test_sync_chain_equals_its_library_sincos_twin(case, library_twins, dev):
+    """With sync, every output of fused_chain (h planes, eq, sigma^2, CFO,
+    checksum, EVM sums) is the library twin's bit for bit: at a CFO near the
+    estimate's limit of 1/128 (B = 1,000 in runs of 8 frames, derotated by
+    phase factors; B = 999 and f32 samples by each thread, a library sincos
+    a sample) and at a CFO estimate of exactly 0 (rx = tx: the LTS repeats
+    are equal, so the correlation is real)."""
+    kw = SYNC_TWIN_CASES[case]
+    dtype, cfo, b, mode = kw["dtype"], kw["cfo"], kw.get("b", B), kw.get("mode", "txconst")
+    frames = make_frames(seed=9, b=b, tx_const=mode == "txconst")
+    if cfo == 0.0:
+        tx_pkt, _, tx_lp, _ = frames
+        frames = (tx_pkt, tx_pkt, tx_lp, tx_lp)
+    else:
+        frames = with_cfo(frames, cfo)
+    rp, rl, tx, extra = _chain_inputs((frames, frames), b, mode, dev, dtype)
+    args = (rp, rl, tx, F.chain_consts(dev, "A", 40.0), 0.0, extra.get("lsb", 1.0), False,
+            "h_mmse", True, True)
+    got = F._launch(*args)
+    twin = F._launch(*args, kernel=library_twins[0])
+    torch.cuda.synchronize()
+    _same_bits(got, twin)
+    if cfo == 0.0:
+        assert bool((got["cfo"] == 0).all())
+    else:
+        assert float((got["cfo"] - cfo).abs().max()) < 2e-2 * abs(cfo)
+
+
+@pytest.mark.cuda
+def test_sync_kernels_keep_two_blocks_per_sm(dev):
+    """The phases live in the second window buffer, so every sync
+    instantiation of both kernels keeps two blocks of 32 frames on an SM."""
+    for storage in (torch.float32, torch.bfloat16, torch.int8):
+        for tx_const in (True, False) if storage != torch.int8 else (True,):
+            for evm in (False, True):
+                for aligned in (False, True):
+                    at = F.kernel_attributes(storage, tx_const, True, evm, aligned)
+                    assert at["blocks_per_sm"] >= 2, (storage, tx_const, evm, aligned, at)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for sums in (False, True):
+            at = R.kernel_attributes(dtype, True, sums, decimate=16)
+            assert at["blocks_per_sm"] >= 2, (dtype, sums, at)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+def test_raw_sync_equals_its_library_sincos_twin(dtype, library_twins, dev):
+    """raw_chain with sync at a CFO near 1/128, decimate 16: every output,
+    detection rows included, is the library twin's bit for bit."""
+    x, _, lsb = _streams(dtype, dev, cfo=EDGE_CFO)
+    args = (x, _taps(dev), *_spectra(dev), None, 192, 4, 0.0, True, False, "A", 40.0, lsb,
+            False, "h_mmse", 16)
+    got = R._launch(*args)
+    twin = R._launch(*args, kernel=library_twins[1])
+    torch.cuda.synchronize()
+    _same_bits(got, twin)
+    assert int(got["detected"].sum()) >= B - 50
+
+
 # -- detection, alignment, placement and the raw receiver -----------------------------
 
 

@@ -18,6 +18,9 @@ CASES = ([(V.SOURCE, name, edits) for name, edits in V.DIAGNOSTICS.items()]
          + [(_build.CSRC / FV.HEADER, "chain-" + name, edits)
             for name, edits in FV.DIAGNOSTICS.items()]
          + [(FV.SOURCE, "chain-" + name, edits) for name, edits in FV.SOURCE_DIAGNOSTICS.items()]
+         # the parent's per-sample library sincos lines live on as the guard's fallback
+         + [(_build.CSRC / FV.HEADER, "chain-" + name, edits)
+            for name, edits in {**FV.PARENT_DIAGNOSTICS, **FV.TREE_DIAGNOSTICS}.items()]
          + [(_build.CSRC / GV.HEADER, "gen-" + name, edits)
             for name, edits in GV.GEN_DIAGNOSTICS.items()]
          + [(GV.SOURCE, "gen-" + name, edits)
@@ -82,6 +85,23 @@ def test_chain_probe_needs_a_card(monkeypatch, capsys):
     assert FV.main(["--parent", "elsewhere"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
 
+
+
+def test_chain_probe_builds_the_derotation_variants_into_raw_chain():
+    """The derotation's variants are built into raw_chain.cu as well as
+    fused_chain.cu; the parent's run builds only its own; count_fallbacks
+    adds its counters inside the chain namespace and its reader once, after
+    it."""
+    fused, raw = FV.variants(parent=True)
+    assert list(fused) == ["as_is", "f32_sincos", "no_sincos"] and raw == fused
+    fused, raw = FV.variants(parent=False)
+    assert list(raw) == ["as_is", "library_sincos", "count_fallbacks"]
+    assert {"no_dft", "no_ring", "library_sincos", "count_fallbacks"} <= set(fused)
+    text = _variants.variant_source(_build.CSRC / FV.HEADER, FV.TREE_DIAGNOSTICS["count_fallbacks"])
+    assert text.count('extern "C" int chain_library_calls') == 1
+    assert text.index("__shared__ unsigned int block_calls[2];") < text.index("constexpr int N_SC")
+    assert text.index('extern "C" int chain_library_calls') > text.index("}  // namespace chain")
+    assert text.count("atomicAdd(&block_calls[") == 2 and text.count("atomicAdd(&library_calls[") == 1
 
 
 def test_gen_probe_needs_a_card(monkeypatch, capsys):

@@ -55,6 +55,9 @@
 // and converts, derotates and stores them after the epilogue).  Where the
 // rows differ per lane (raw_chain.cu, raw_gen_chain.cu) or B is ragged,
 // each thread loads its own rows n = g + 8r of its frame in the same places.
+// Staged through registers, a window is stored only after the last product
+// that read its buffer, so with sync in runs every window uses buffer 0 and
+// buffer 1 holds the derotation's phase factors.
 // scale = (1+eps)*lsb multiplies the rx preamble before the CFO estimate
 // and the rx block spectra after the DFT; the tx side is scaled only in
 // per-frame-tx mode and is never derotated.
@@ -62,11 +65,19 @@
 // The derotated samples agree bit for bit with the plain PyTorch version's,
 // so that their bf16 rounding does too: the Moose correlation is summed in
 // f64 (products of f32 values are exact there) and the CFO is
-// atan2/(2pi*64) in f64 rounded to f32; the angle is ((-2pi)*cfo)*t in f32
-// (t = 0..159 on the preamble, t = 160 + 80b + 16 + n in block b); cos and
-// sin are taken in f64 and rounded to f32 (correctly rounded on both
-// sides); and the rotation's products and sums are rounded one by one (no
-// FMA contraction).
+// atan2/(2pi*64) in f64 rounded to f32; the angle is ang = (w = (-2pi)*cfo)*t
+// in f32 (t = 32..159 on the preamble, t = 160 + 80b + 16 + n in block b);
+// cos and sin are the library's f64 sincos(ang) rounded to f32 (correctly
+// rounded on both sides); and the rotation's products and sums are rounded
+// one by one (no FMA contraction).  Where the windows move in runs of 8
+// frames (SHARED_ROWS) the library is called for a few phase factors a
+// frame, not for each sample (Phases, cis): e^{i w t} is a product of two
+// f64 factors (angle addition), turned by the f32 angle's rounding error,
+// and a guard hands the rare value that lies too near an f32 rounding
+// midpoint to the library itself, so every cos and sin is the library's bit
+// for bit.  Rows of each lane's own frame (raw_chain.cu, raw_gen_chain.cu,
+// f32 samples, a ragged B) call the library for each sample (derotate):
+// there the guard's out-of-line pass costs more registers than it saves.
 
 #pragma once
 
@@ -167,6 +178,23 @@ struct SmemCommon {
   float cfo[FRAMES];                     // each frame's CFO estimate (sync)
 };
 
+// The derotation's phase factors (sync), in f64, for each frame's w: sample
+// t = T + 8j + r of the window staged next (T its first row) turns by
+// e^{i w t} = x[j] y[r]; step = e^{i w 80} carries x from one block's
+// window to the next.  Frame f's x[j] sits at column f + f / 8 and its y[r]
+// at 8f + (r + f + 2 (f / 8)) % 8, so that each quarter warp's 16-byte reads
+// (the runs' 2 rows by 4 frames, or 8 frames) fall on distinct banks.
+struct Phases {
+  double2 x[GROUPS][FRAMES + FRAMES / GROUPS];
+  double2 y[FRAMES * GROUPS];
+  double2 step[FRAMES];
+};
+
+__device__ __forceinline__ int x_col(int f) { return f + f / GROUPS; }
+__device__ __forceinline__ int y_at(int f, int r) {
+  return GROUPS * f + (r + f + 2 * (f / GROUPS)) % GROUPS;
+}
+
 template <bool MMA, bool TX_CONST>
 struct Smem;
 
@@ -195,6 +223,11 @@ struct Smem<true, TX_CONST> : SmemCommon<TX_CONST> {
     float y[2][Y_BINS][YROW];            // the spectra, [plane][bin][column]
     double cred[GROUPS][2][FRAMES];      // Moose partial sums, before the first product
   };
+  // with sync and runs every window is staged in buffer 0 (through
+  // registers, after the last product that read the buffer), and buffer 1
+  // holds the phases
+  static_assert(sizeof(Phases) <= sizeof(win[1]), "the phases fit the second window buffer");
+  __device__ Phases& phases() { return *reinterpret_cast<Phases*>(&win[1][0][0][0]); }
 };
 
 // the layout that run<T, TX_CONST, ...> takes
@@ -223,8 +256,12 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
+// -- the derotation (sync) ----------------------------------------------------
+
 // v * exp(-2pi i cfo t): the f32 angle's cos and sin correctly rounded to
-// f32, the rotation rounded as separate f32 products and sums
+// f32 by the library, the rotation rounded as separate f32 products and sums
+// (the staging of rows n = g + 8r, where the guard's rare pass costs more
+// registers than the phases save)
 __device__ __forceinline__ float2 derotate(float2 v, float cfo, int t) {
   const float ang = __fmul_rn(__fmul_rn(NEG_TWO_PI, cfo), static_cast<float>(t));
   double sd, cd;
@@ -232,6 +269,117 @@ __device__ __forceinline__ float2 derotate(float2 v, float cfo, int t) {
   const float sn = static_cast<float>(sd), cs = static_cast<float>(cd);
   return make_float2(__fsub_rn(__fmul_rn(v.x, cs), __fmul_rn(v.y, sn)),
                      __fadd_rn(__fmul_rn(v.x, sn), __fmul_rn(v.y, cs)));
+}
+
+// (cos, sin) of the f32 angle: the library's f64 sincos, each rounded to f32.
+// Called only where the guard cannot tell, so kept out of line: the
+// library's code (its slow path for large angles too) stays out of the
+// loops' instruction stream.
+__device__ __noinline__ float2 library_cis(float ang) {
+  double sd, cd;
+  sincos(static_cast<double>(ang), &sd, &cd);
+  const float sn = static_cast<float>(sd), cs = static_cast<float>(cd);
+  return make_float2(cs, sn);
+}
+
+// e^{i x} from the library's f64 sincos, for a phase factor (x exact: an
+// f32 w times an integer of at most 11 bits); out of line as library_cis
+__device__ __noinline__ double2 factor(double x) {
+  double2 e;
+  sincos(x, &e.y, &e.x);
+  return e;
+}
+
+__device__ __forceinline__ double2 cmul64(double2 a, double2 b) {
+  return make_double2(fma(a.x, b.x, -(a.y * b.y)), fma(a.y, b.x, a.x * b.y));
+}
+
+// The guard.  K bounds |(c, s) - library sincos(ang)| in units of 2^-53 m,
+// m = 1 for cos and min(1, |ang|) for sin (every sub-angle has w's sign,
+// so the sines' errors stay relative):
+//  - each library value is within 2 ulp (CUDA's bound), 4 units;
+//  - a factor after k <= 3 steps by `step` (a library value) is within
+//    (4 + 6k) sqrt(2) units, the product with y adds 4 sqrt(2) + 2 sqrt(2)
+//    for its roundings: <= 40 units at k = 3;
+//  - the turn by the angle's rounding error d (|d| <= 2^-18, |ang| < 68)
+//    rounds once more and drops d^3/6, under 1.2 units;
+//  - the reference, the library's own sincos(ang), 4 more.
+// That is under 46, and K = 64.  A value x passes if every value within
+// 2 K units of it rounds to x's f32 (twice K for the tests' own
+// roundings).  In x's own ulps, 2^(ex - 1075) for the biased exponent ex,
+// 2 K 2^-53 m is at most 2 K << (em - ex) when m <= 2^(em - 1022); so x
+// passes when em - ex is 0..20 and its low 29 bits (those that f32 drops)
+// lie further than that from the rounding midpoint 2^28 (the exact test).
+// The samples' loop takes a cheaper test first: x at least 2^(em - 1032)
+// in size (so em - ex <= 10) and its low bits further than 2 K << 10 from
+// the midpoint; the few in a thousand that it cannot vouch for take the
+// exact test, and the few in a million that fail that are the library's.
+constexpr uint32_t GUARD_2K = 128;
+constexpr uint32_t GUARD_CHEAP = GUARD_2K << 10;
+constexpr uint32_t GUARD_MID = 1u << 28, GUARD_LOW = (1u << 29) - 1;
+constexpr uint32_t GUARD_SHIFTS = 20;
+constexpr uint32_t COS_EM = 1022;        // m = 1 = 2^(1022 - 1022)
+constexpr uint32_t F32_TO_F64_EXP = 896;  // the f32 exponent bias 127 to f64's 1023
+constexpr float SMALL_ANGLE = 0x1p-13f;  // cos rounds to 1 and sin to the angle below it
+
+// the cheap test: |xf| >= floor (floor >= 2^(em - 1032)), and x's low bits
+// further than 2 K << 10 from the midpoint
+__device__ __forceinline__ bool far_from_midpoint(double x, float xf, float floor) {
+  const uint32_t low = (static_cast<uint32_t>(__double2loint(x)) + GUARD_CHEAP - GUARD_MID) &
+                       GUARD_LOW;
+  return fabsf(xf) >= floor && low > 2u * GUARD_CHEAP;
+}
+
+// the exact test
+__device__ __forceinline__ bool clear_of_midpoint(double x, uint32_t em) {
+  const uint32_t ex = (static_cast<uint32_t>(__double2hiint(x)) >> 20) & 0x7ffu;
+  const uint32_t shift = em - ex;  // wraps to large where |x| exceeds 2^(em - 1022)
+  const uint32_t ulps = GUARD_2K << (shift & 31u);
+  const uint32_t low = (static_cast<uint32_t>(__double2loint(x)) + ulps - GUARD_MID) & GUARD_LOW;
+  return shift <= GUARD_SHIFTS && low > 2u * ulps;
+}
+
+// cos and sin of ang = fl(w tf) in f64 from e = e^{i w tf} (the exact
+// angle): e turned by d = ang - w tf (exact in f32), to second order in d
+__device__ __forceinline__ double2 turn(float w, float tf, float ang, double2 e) {
+  const double a = __fmaf_rn(w, tf, -ang);  // -d
+  const double ah = 0.5 * a;
+  return make_double2(fma(a, fma(-ah, e.x, e.y), e.x), fma(-a, fma(ah, e.y, e.x), e.y));
+}
+
+// the sine's m, min(1, |ang|) with room
+__device__ __forceinline__ float sine_scale(float ang) { return fminf(fabsf(ang) * 1.0001f, 1.f); }
+
+// (cos, sin) of ang = fl(w tf) rounded to f32, equal to library_cis(ang) bit
+// for bit where `sure` stays set, from e = e^{i w tf}; where the cheap test
+// cannot vouch for them it clears `sure`, and the caller asks `vouched`
+// (and for the few that fails, library_cis) out of its loop.
+__device__ __forceinline__ float2 cis(float w, float tf, double2 e, bool& sure) {
+  const float ang = __fmul_rn(w, tf);
+  const double2 cs = turn(w, tf, ang, e);
+  float2 r = make_float2(static_cast<float>(cs.x), static_cast<float>(cs.y));
+  // floors 2^-10 (cos: em = 1022) and m 2^-9 (sin: m >= 2^(em - 1023))
+  if (fabsf(ang) < SMALL_ANGLE)
+    r = make_float2(1.f, ang);
+  else if (!(far_from_midpoint(cs.x, r.x, 0x1p-10f) &&
+             far_from_midpoint(cs.y, r.y, sine_scale(ang) * 0x1p-9f)))
+    sure = false;
+  return r;
+}
+
+// whether cis's values for ang = fl(w tf) are the library's, by the exact test
+__device__ __forceinline__ bool vouched(float w, float tf, double2 e) {
+  const float ang = __fmul_rn(w, tf);
+  if (fabsf(ang) < SMALL_ANGLE) return true;
+  const double2 cs = turn(w, tf, ang, e);
+  const uint32_t sine_em = (__float_as_uint(sine_scale(ang)) >> 23) + F32_TO_F64_EXP;
+  return clear_of_midpoint(cs.x, COS_EM) && clear_of_midpoint(cs.y, sine_em);
+}
+
+// v * (cos, sin), rounded as separate f32 products and sums
+__device__ __forceinline__ float2 rotate(float2 v, float2 cs) {
+  return make_float2(__fsub_rn(__fmul_rn(v.x, cs.x), __fmul_rn(v.y, cs.y)),
+                     __fadd_rn(__fmul_rn(v.x, cs.y), __fmul_rn(v.y, cs.x)));
 }
 
 // sample k of a run of 8 bf16 (uint4) or int8 (uint2) samples, as f32
@@ -390,6 +538,31 @@ __device__ __forceinline__ int pilot_of(int k) {
              ? (k - PILOT0) / PILOT_DELTA : -1;
 }
 
+// With sync, thread t's run of 8 frames (as load_runs reads it: sample k at
+// xr/xi[k], none if null) at time tf, just staged in buffer 0 (`win`,
+// [plane][sample][WROW]): the samples whose cos or sin the cheap test could
+// not vouch for (bits of `unsure`; a few in a thousand) take the exact
+// test, and those it fails too (a few in a million) are staged again with
+// the library's cos and sin, loaded anew, turned and rounded to bf16.  Out
+// of line, with plain arguments, so that the staging loop keeps its
+// registers.
+template <typename T, int WROW>
+__device__ __noinline__ void restage_run(unsigned unsure, float tf, const T* xr, const T* xi,
+                                         const float* cfo, const Phases* ph, __nv_bfloat16* win) {
+  const int run_row = threadIdx.x / 4, run_col = 8 * (threadIdx.x % 4);
+  for (; unsure; unsure &= unsure - 1) {
+    const int k = __ffs(unsure) - 1;
+    const float w = __fmul_rn(NEG_TWO_PI, cfo[run_col + k]);
+    if (vouched(w, tf, cmul64(ph->x[run_row / GROUPS][x_col(run_col + k)],
+                              ph->y[y_at(run_col + k, run_row % GROUPS)])))
+      continue;
+    const float2 x = xr ? make_float2(to_f32(xr[k]), to_f32(xi[k])) : make_float2(0.f, 0.f);
+    const float2 v = rotate(x, library_cis(__fmul_rn(w, tf)));
+    win[run_row * WROW + run_col + k] = __float2bfloat16_rn(v.x);
+    win[(N_FFT + run_row) * WROW + run_col + k] = __float2bfloat16_rn(v.y);
+  }
+}
+
 // The whole chain for frame f (column f of every buffer) in lane ``lane``
 // of group ``g``.  lp_base, pkt_base: this lane's first row of the rx
 // preamble and packet.  EVM needs p.evm.  SHARED_ROWS (bf16 or int8
@@ -408,6 +581,9 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
   // bf16 rows copied as they are: cp.async; else through registers
   constexpr bool ASYNC = SHARED_ROWS && std::is_same<T, __nv_bfloat16>::value && !SYNC;
   constexpr bool RUN_REGS = SHARED_ROWS && !ASYNC;
+  // the derotation by phase factors (runs of 8 frames); rows of each lane's
+  // own frame take the library's sincos a sample
+  constexpr bool PHASES = SYNC && RUN_REGS;
   using EqT = typename std::conditional<BF16_OPS, __nv_bfloat16, float>::type;
   const long long batch = p.batch;
   // per-frame tx with CPE or EVM needs the tx spectra of every block
@@ -415,6 +591,9 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
   // window i < N_AVG is block i of the estimators' pass, then blocks 0..14
   auto block_of = [](int i) { return i < N_AVG ? i : i - N_AVG; };
   auto with_tx = [](int i) { return !TX_CONST && (i < N_AVG || tx_all); };
+  // the buffer of window i (-1: the preamble): a ring of two, but with the
+  // phases every window goes to buffer 0 and buffer 1 holds them
+  auto buf = [](int i) { return PHASES ? 0 : i < 0 ? 1 : i & 1; };
 
   // -- the block's first window on its way (ASYNC) ------------------------------
   auto issue = [&](int i) {  // cp.async of window i into buffer i & 1
@@ -433,7 +612,7 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
         const long long row = (side ? 0 : pkt_base) + row0 + n;
         const __nv_bfloat16* src =
             static_cast<const __nv_bfloat16*>(base) + (bytes ? row * batch + fc : 0);
-        cp_async16(&s.win[i & 1][plane][n][FRAMES * side + 8 * part], src, bytes);
+        cp_async16(&s.win[buf(i)][plane][n][FRAMES * side + 8 * part], src, bytes);
       }
       cp_async_commit();
     }
@@ -491,6 +670,7 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
 
   // -- CFO (Moose): c = sum conj(r1) r2 over the scaled repeats, in f64 ------
   float cfo = 0.f;
+  double2 lts_turn = make_double2(1.0, 0.0);
   if constexpr (SYNC) {
     double cr = 0.0, ci = 0.0;
     for (int n = g; n < N_FFT; n += GROUPS) {
@@ -511,21 +691,46 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
     cfo = static_cast<float>(atan2(ci, cr) / TWO_PI_64);
     if (g == 0) s.cfo[lane] = cfo;
   }
+  if constexpr (PHASES) {
+    // this lane's phase factors: y[g], x[g] of the first LTS repeat, the
+    // step (g = 0), and e^{i w 64}, which turns the first repeat's phases
+    // into the second's
+    Phases& ph = s.phases();
+    const double wd = __fmul_rn(NEG_TWO_PI, cfo);
+    ph.y[y_at(lane, g)] = g ? factor(wd * g) : make_double2(1.0, 0.0);
+    if (g == 0) ph.step[lane] = factor(wd * SAMP_PER_BLOCK);
+    ph.x[g][x_col(lane)] = factor(wd * (LTS0 + GROUPS * g));
+    lts_turn = factor(wd * (LTS1 - LTS0));
+    __syncthreads();
+  }
 
   // -- preamble: derotate, average the LTS repeats, sigma^2; its window is
-  //    the preamble's buffer (1: buffer 0 takes block 0) ----------------------
+  //    the preamble's buffer ----------------------------------------------------
   {
     float ow2_part = 0.f;
+    const float w = __fmul_rn(NEG_TWO_PI, cfo);
     for (int n = g; n < N_FFT; n += GROUPS) {
       float2 a, b;
       lts_pair(n, a, b);
-      if constexpr (SYNC) {
+      if constexpr (PHASES) {
+        const Phases& ph = s.phases();
+        const double2 e = cmul64(ph.x[n / GROUPS][x_col(lane)], ph.y[y_at(lane, g)]);
+        const float t0 = LTS0 + n, t1 = LTS1 + n;
+        bool sure = true;
+        float2 ca = cis(w, t0, e, sure), cb = cis(w, t1, cmul64(e, lts_turn), sure);
+        if (!sure && !(vouched(w, t0, e) && vouched(w, t1, cmul64(e, lts_turn)))) {
+          ca = library_cis(__fmul_rn(w, t0));
+          cb = library_cis(__fmul_rn(w, t1));
+        }
+        a = rotate(a, ca);
+        b = rotate(b, cb);
+      } else if constexpr (SYNC) {
         a = derotate(a, cfo, LTS0 + n);
         b = derotate(b, cfo, LTS1 + n);
       }
       const float dr = a.x - b.x, di = a.y - b.y;
       ow2_part += dr * dr + di * di;
-      put(1, lane, n,
+      put(buf(-1), lane, n,
           make_float2(op<BF16_OPS>((a.x + b.x) * 0.5f), op<BF16_OPS>((a.y + b.y) * 0.5f)));
       if constexpr (!TX_CONST) {
         const T* tr = static_cast<const T*>(p.txb_re);
@@ -538,7 +743,7 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
           dr2 = to_f32(tr[i2]) * p.scale;
           di2 = to_f32(ti[i2]) * p.scale;
         }
-        put(1, FRAMES + lane, n,
+        put(buf(-1), FRAMES + lane, n,
             make_float2(op<BF16_OPS>((cr + dr2) * 0.5f), op<BF16_OPS>((ci + di2) * 0.5f)));
       }
     }
@@ -574,24 +779,45 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
   };
   auto put_runs = [&](int i) {
     if constexpr (RUN_REGS) {
-      const int t = PREAMBLE + block_of(i) * SAMP_PER_BLOCK + N_CP + run_row;
+      const int row = block_of(i) * SAMP_PER_BLOCK + N_CP + run_row;
+      const float tf = PREAMBLE + row;
+      const long long fc = f - lane + run_col;  // the run's first frame
+      // (cos, sin) at sample k; bit k of `unsure` set where cis was not sure
+      auto run_cis = [&](int k, unsigned& unsure) {
+        const Phases& ph = s.phases();
+        bool sure = true;
+        const float2 cs = cis(__fmul_rn(NEG_TWO_PI, s.cfo[run_col + k]), tf,
+                              cmul64(ph.x[run_row / GROUPS][x_col(run_col + k)],
+                                     ph.y[y_at(run_col + k, run_row % GROUPS)]), sure);
+        if (!sure) unsure |= 1u << k;
+        return cs;
+      };
       auto put8 = [&](const Run (&v)[2], int col, bool derot) {
         uint32_t wr[4], wi[4];
+        unsigned unsure = 0;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           float2 a = make_float2(run_element<T>(v[0], 2 * k), run_element<T>(v[1], 2 * k));
           float2 b = make_float2(run_element<T>(v[0], 2 * k + 1), run_element<T>(v[1], 2 * k + 1));
           if (SYNC && derot) {
-            a = derotate(a, s.cfo[run_col + 2 * k], t);
-            b = derotate(b, s.cfo[run_col + 2 * k + 1], t);
+            a = rotate(a, run_cis(2 * k, unsure));
+            b = rotate(b, run_cis(2 * k + 1, unsure));
           }
           wr[k] = pack_bf16(a.x, b.x);
           wi[k] = pack_bf16(a.y, b.y);
         }
-        __nv_bfloat16* row = &s.win[i & 1][0][run_row][col + run_col];
-        *reinterpret_cast<uint4*>(row) = make_uint4(wr[0], wr[1], wr[2], wr[3]);
-        *reinterpret_cast<uint4*>(row + N_FFT * Smem<true, TX_CONST>::WROW) =
-            make_uint4(wi[0], wi[1], wi[2], wi[3]);
+        __nv_bfloat16* re = &s.win[buf(i)][0][run_row][col + run_col];
+        __nv_bfloat16* im = re + N_FFT * Smem<true, TX_CONST>::WROW;
+        *reinterpret_cast<uint4*>(re) = make_uint4(wr[0], wr[1], wr[2], wr[3]);
+        *reinterpret_cast<uint4*>(im) = make_uint4(wi[0], wi[1], wi[2], wi[3]);
+        if (unsure) {  // B is a multiple of 8: the run is all loaded or none
+          const long long at = (pkt_base + row) * batch + fc;
+          const bool loaded = fc < batch;
+          restage_run<T, Smem<true, TX_CONST>::WROW>(
+              unsure, tf, loaded ? static_cast<const T*>(p.rxp_re) + at : nullptr,
+              loaded ? static_cast<const T*>(p.rxp_im) + at : nullptr, s.cfo, &s.phases(),
+              &s.win[0][0][0][0]);
+        }
       };
       put8(vq, 0, true);
       if constexpr (!TX_CONST) {
@@ -634,11 +860,25 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
       const int n = g + GROUPS * r;
       float2 v = vr[r];
       if constexpr (SYNC) v = derotate(v, cfo, t0 + n);
-      put(i & 1, lane, n, make_float2(op<BF16_OPS>(v.x), op<BF16_OPS>(v.y)));
+      put(buf(i), lane, n, make_float2(op<BF16_OPS>(v.x), op<BF16_OPS>(v.y)));
       if constexpr (!TX_CONST) {
         if (with_tx(i))
-          put(i & 1, FRAMES + lane, n, make_float2(op<BF16_OPS>(vt[r].x), op<BF16_OPS>(vt[r].y)));
+          put(buf(i), FRAMES + lane, n, make_float2(op<BF16_OPS>(vt[r].x), op<BF16_OPS>(vt[r].y)));
       }
+    }
+  };
+  // this thread's x (frame lane, j = g) for window i's rows (phases): from
+  // the library in every fourth window, else one step of 80 samples on from
+  // the window before (window 4, block 0 again, is a fourth)
+  auto advance = [&](int i) {
+    if constexpr (PHASES) {
+      Phases& ph = s.phases();
+      double2& x = ph.x[g][x_col(lane)];
+      if (i % 4 == 0)
+        x = factor(static_cast<double>(__fmul_rn(NEG_TWO_PI, cfo)) *
+                   (PREAMBLE + block_of(i) * SAMP_PER_BLOCK + N_CP + GROUPS * g));
+      else
+        x = cmul64(x, ph.step[lane]);
     }
   };
   auto load = [&](int i) {
@@ -663,13 +903,15 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
           load(i + 1);
         }
       }
-      const __nv_bfloat16* x = &s.win[i < 0 ? 1 : i & 1][0][0][0];
+      const __nv_bfloat16* x = &s.win[buf(i)][0][0][0];
       using S = Smem<true, TX_CONST>;
       mma_dft<S::WROW, S::YROW>(s.tw, x, &s.y[0][0][0], 0, g, lane);
       if (i < 0 ? !TX_CONST : with_tx(i))
         mma_dft<S::WROW, S::YROW>(s.tw, x, &s.y[0][0][0], FRAMES, g, lane);
-      __syncthreads();  // Y written
+      if (i + 1 < N_WINDOWS) advance(i + 1);
+      __syncthreads();  // Y written (and the phases of window i + 1)
     } else {
+      if (i >= 0) advance(i);
       __syncthreads();  // the preamble staged, or every reader of the last window done
       if (i >= 0) {
         load(i);
@@ -678,8 +920,8 @@ __device__ void run(const Params& p, SmemFor<T, TX_CONST>& s, long long f, bool 
       }
     }
   };
-  // after window i's epilogue: window i + 1 into the other buffer (the
-  // product that last read that buffer ended before window i's)
+  // after window i's epilogue: window i + 1 into its buffer (the product
+  // that last read that buffer ended before window i's epilogue)
   auto finish = [&](int i) {
     if constexpr (MMA && !ASYNC) {
       if (i + 1 < N_WINDOWS) put_window(i + 1);

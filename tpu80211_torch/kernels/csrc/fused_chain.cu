@@ -23,8 +23,11 @@
 // a probe that reads cached rows saves nothing); the CUDA-core epilogue
 // sets the pace with 16 warps an SM: the eq stores (0.09 ms), the
 // equalizer's divisions (0.08) and forming blocks 0..3 again (0.09).  sync
-// adds one f64 sincos per sample (~1,400 per frame) in the staging
-// (1.03 ms).  f32 samples keep the CUDA-core DFT (~2.2e5 FMAs per frame).
+// adds the Moose sums, the CPE and the derotation of ~1,340 samples a frame
+// in the staging: in runs of 8 frames by phase factors (64 library sincos a
+// frame), else one f64 library sincos a sample, which cost 0.32 ms of the
+// 1.03 ms sync kernel before the phases.  f32 samples keep the CUDA-core
+// DFT (~2.2e5 FMAs per frame).
 
 #include "chain.cuh"
 

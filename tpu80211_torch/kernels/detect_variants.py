@@ -97,13 +97,15 @@ CHAIN_DIAGNOSTICS = {
 }
 
 
-def streams(dev) -> Cplx:
+def streams(dev, cfo: float = 0.0) -> Cplx:
     """The raw workload: the capture's frame placed at seeded offsets in
     [40, NS − 1,400) of every stream over AWGN, bf16 (placed by the plain
-    version, so no kernel under test makes its own input)."""
+    version, so no kernel under test makes its own input); ``cfo`` (cycles
+    a sample) turns the frame by exp(2πi·cfo·n) from its first sample."""
     cap = load_capture()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     frame = np.concatenate([cap.rx_lptot, cap.rx_packet])
+    frame = frame * np.exp(2j * np.pi * cfo * np.arange(frame.size))
     sig = Cplx(*(torch.zeros((NS, B), dtype=torch.bfloat16, device=dev) for _ in range(2)))
     for plane, part in zip(sig, (frame.real, frame.imag)):
         plane[:frame.size] = torch.tensor(part, dtype=torch.float32, device=dev)[:, None]
