@@ -6,6 +6,11 @@ file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import json
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -878,6 +883,129 @@ def test_stream_step_on_the_card(gen, dev):
         assert v.device.type == "cuda" and bool(torch.isfinite(v)), k
         assert torch.equal(v, again[k]), k
     assert torch.equal(sample_h.re, sample_b.re)
+
+
+MC_SWEEP = (0.0, 10.0, 20.0, 30.0, 40.0)
+MC_KW = dict(snr_db=MC_SWEEP, gen="kernel_raw", channel_model="A", cfo_khz=20.0,
+             equalize_with="h_mmse")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i, shift", [(0, 0), (4, 7)])
+def test_sweep_step_with_cfo_on_the_card_is_the_plain_step(i, shift, dev):
+    """The upstream's Monte Carlo step (a 20 kHz CFO, the MMSE blend,
+    channel A, the SNR cycle) on the card: batch i at SNR MC_SWEEP[i] is
+    ``gen_raw_plain`` at the batch's `kernel_seed`, with the kernel's
+    tolerances (test_raw_gen_kernel_matches_plain): detection and timing
+    within two streams (a field sample may lie one bf16 step apart where
+    h_true's float64 sums round otherwise), EVM and NMSE within 1e-3,
+    the sampled h_mmse within 1e-3; the same (i, state) gives the same
+    batch."""
+    from tpu80211_torch.ops.detect import lts_time_symbol
+
+    step, s0 = S.make_device_stream_step(GEN_B, seed=5, device=dev, **MC_KW)
+    st = s0 + shift
+    summary, sample_h, nxt = step(i, st)
+    again, sample_b, nxt_b = step(i, st)
+    txc = _spectra(dev)
+    lts = torch_planes(lts_time_symbol(load_capture().tx_lptot).numpy()).map(lambda t: t.to(dev))
+    want = RG.gen_raw_plain(S.kernel_seed(5, i, st), GEN_B, *txc, lts, snr_db=MC_SWEEP[i],
+                            channel_model="A", cfo_khz=20.0, equalize_with="h_mmse")
+    blocks = [t[:, :15].double() for t in txc.txs]
+    ws = S._raw_summary(want, want["offsets"], want["h_true"],
+                        float((blocks[0] ** 2 + blocks[1] ** 2).sum()))
+    torch.cuda.synchronize()
+    for k in ("detect_rate", "timing_in_band_rate"):
+        assert abs(float(summary[k]) - float(ws[k])) * GEN_B <= 2, (k, summary[k], ws[k])
+    for k in ("evm_rms", "h_mmse_mag_nmse"):
+        assert float(summary[k]) == pytest.approx(float(ws[k]), rel=1e-3), k
+    for g, w in zip(sample_h, want["h_mmse"]):
+        assert rel(to_np(g), to_np(w[:, :128])) < 1e-3
+    assert float(want["cfo_true"].abs().max()) > 5e-4
+    for k, v in summary.items():
+        assert torch.equal(v, again[k]), k
+    assert torch.equal(sample_h.re, sample_b.re) and torch.equal(nxt, nxt_b)
+
+
+@pytest.mark.cuda
+def test_sweep_step_spans_and_counts_on_the_card(dev):
+    """With spans on, a step's parts (seed, the generator's entry span,
+    summary) add up to within 5% of its ``entry.stream_step`` span (the
+    median step: the card's host is shared, and a step now and then loses
+    the core for ~0.2 ms between two parts); each step counts one
+    ``call.stream_step``, one ``call.gen_raw_system`` and one launch of the
+    kernel."""
+    step, st = S.make_device_stream_step(GEN_B, seed=5, device=dev, **MC_KW)
+    for i in range(5):   # every SNR's constants, and the build
+        _, _, st = step(i, st)
+    torch.cuda.synchronize()
+    spans.clear()
+    spans.enable()
+    try:
+        before = spans.counters.snapshot()
+        for i in range(5, 15):
+            _, _, st = step(i, st)
+        torch.cuda.synchronize()
+        after = spans.counters.snapshot()
+        recs = spans.records()
+    finally:
+        spans.disable()
+    for k in ("call.stream_step", "call.gen_raw_system", "launch.raw_gen_chain"):
+        assert after.get(k, 0) - before.get(k, 0) == 10, k
+    tops = [r for r in recs if r.name == "entry.stream_step"]
+    assert len(tops) == 10
+    cover = []
+    for top in tops:
+        inside = [r for r in recs if r.call_id == top.call_id and r.parent == top.name]
+        assert [r.name for r in inside] == ["seed", "entry.gen_raw_system", "summary"]
+        cover.append(sum(r.end_ns - r.start_ns for r in inside) / (top.end_ns - top.start_ns))
+    assert float(np.median(cover)) >= 0.95, cover
+
+
+_COUNT_LAUNCHES = """
+import json, sys, torch
+from tpu80211_torch.pipeline import stream as S
+from tpu80211_torch.utils import spans
+gen = sys.argv[1]
+kw = dict(snr_db=[0.0, 10.0, 20.0, 30.0, 40.0], gen=gen, channel_model="A")
+if gen == "kernel_raw":
+    kw.update(cfo_khz=20.0, equalize_with="h_mmse")
+step, st = S.make_device_stream_step(1024, seed=5, device="cuda", **kw)
+for i in range(5):
+    _, _, st = step(i, st)
+torch.cuda.synchronize()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts):   # a process's first session drops events
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+before = spans.counters.snapshot()
+with torch.profiler.profile(activities=acts) as prof:
+    step(5, st)
+    torch.cuda.synchronize()
+after = spans.counters.snapshot()
+cuda = torch.autograd.DeviceType.CUDA
+kernels = [e.name()[:160] for e in prof.profiler.kineto_results.events()
+           if e.device_type() == cuda and not e.is_user_annotation()
+           and not e.name().startswith(("Memcpy", "Memset"))]
+print(json.dumps([sum(v - before.get(k, 0) for k, v in after.items()
+                      if k.startswith("launch.")), kernels]))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gen", ["kernel", "kernel_raw"])
+def test_stream_step_counts_its_launches(gen, dev):
+    """The launches a step counts (its kernel, the wrapper's PyTorch kernel
+    and the step's own under ``launch.torch``) are the kernels the
+    profiler sees it run.  In a process of its own: a profiler session
+    here left later sessions of this file without kernel events; and a
+    short session first, as the benchmark's tracer does, since a process's
+    first session missed some of the step's kernels."""
+    p = subprocess.run([sys.executable, "-c", _COUNT_LAUNCHES, gen], capture_output=True,
+                       text=True, timeout=600, cwd=pathlib.Path(__file__).resolve().parent.parent)
+    assert p.returncode == 0, p.stderr[-3000:]
+    launches, kernels = json.loads(p.stdout.strip().splitlines()[-1])
+    assert launches == len(kernels), (launches, "\n".join(kernels))
 
 
 # -- the dense MMSE solves --------------------------------------------------------------------

@@ -157,6 +157,24 @@ def test_mesh_stream_step_at_dp1_is_the_single_chip_step(one, gen):
         assert torch.equal(m0, s0)
 
 
+def test_mesh_sweep_with_cfo_at_dp1_is_the_single_chip_step(one):
+    """The upstream's Monte Carlo on a mesh of one: with a 20 kHz CFO, the
+    MMSE blend and an SNR cycle, the mesh step's summary, sample and next
+    state are the single-chip step's, bit for bit, over two chained
+    batches."""
+    kw = dict(snr_db=[40.0, 10.0], gen="kernel_raw", channel_model="A", cfo_khz=20.0,
+              equalize_with="h_mmse", device="cpu")
+    mstep, m0 = S.make_device_stream_step(128, mesh=one, **kw)
+    step, s0 = S.make_device_stream_step(128, **kw)
+    for i in range(2):
+        msum, msample, m0 = mstep(i, m0)
+        ssum, ssample, s0 = step(i, s0)
+        for k in msum:
+            assert torch.equal(msum[k], ssum[k]), (i, k)
+        assert torch.equal(msample.re, ssample.re) and torch.equal(msample.im, ssample.im)
+        assert torch.equal(m0, s0)
+
+
 def test_mesh_stream_step_checks_its_arguments(one):
     with pytest.raises(ValueError, match="in-kernel generator"):
         S.make_device_stream_step(128, gen="xla", mesh=one, device="cpu")

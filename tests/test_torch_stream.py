@@ -162,3 +162,120 @@ def test_step_checks_its_arguments():
         S.make_device_stream_step(B, gen="host", device="cpu")
     with pytest.raises(ValueError, match="multiple of 128"):
         S.make_device_stream_step(100, device="cpu")
+
+
+# -- the upstream's Monte Carlo: the CFO, the MMSE blend and an SNR cycle ----------------------
+
+SWEEP = (40.0, 10.0)
+MC = dict(snr_db=SWEEP, gen="kernel_raw", channel_model="A", cfo_khz=20.0,
+          equalize_with="h_mmse")
+
+
+@pytest.fixture(scope="module")
+def swept():
+    """Two chained kernel_raw steps of the upstream's deployment, with the
+    program's spans on: each step's (input state, output, counters)."""
+    from tpu80211_torch.utils import spans
+
+    step, st = S.make_device_stream_step(B, seed=11, sample=8, device="cpu", **MC)
+    spans.clear()
+    spans.enable()
+    try:
+        steps = []
+        for i in range(2):
+            before = spans.counters.snapshot()
+            out = step(i, st)
+            after = spans.counters.snapshot()
+            steps.append((st, out, {k: v - before.get(k, 0) for k, v in after.items()}))
+            st = out[2]
+        return steps, spans.records()
+    finally:
+        spans.disable()
+
+
+def test_kernel_raw_sweep_with_cfo_is_the_plain_system(swept):
+    """Batch i is ``gen_raw_plain`` called by hand at the batch's
+    `kernel_seed` and at SNR SWEEP[i mod 2], with the deployment's CFO and
+    the MMSE blend: the summary, the sample and the next state, bit for bit.
+    The CFO is drawn and found."""
+    from tpu80211_torch.datasets.loader import load_capture
+    from tpu80211_torch.kernels import fused_chain as F
+    from tpu80211_torch.kernels import raw_gen_chain as RG
+    from tpu80211_torch.ops.detect import lts_time_symbol
+
+    cap = load_capture()
+
+    def planes(x):
+        x = np.asarray(x)
+        return S.Cplx(*(torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+                        for v in (x.real, x.imag)))
+
+    txs, tpre = F.tx_spectra(planes(cap.tx_packet), planes(cap.tx_lptot))
+    lts = planes(lts_time_symbol(cap.tx_lptot).numpy())
+    blocks = [t[:, :C.N_BLOCKS].double() for t in txs]
+    evm_den = float((blocks[0] ** 2 + blocks[1] ** 2).sum())
+    for i, (st, (summary, sample_h, nxt), _) in enumerate(swept[0]):
+        want = RG.gen_raw_plain(S.kernel_seed(11, i, st), B, txs, tpre, lts, snr_db=SWEEP[i],
+                                channel_model="A", cfo_khz=20.0, equalize_with="h_mmse")
+        ws = S._raw_summary(want, want["offsets"], want["h_true"], evm_den)
+        assert set(summary) == set(ws)
+        for k, v in ws.items():
+            assert torch.equal(summary[k], v), (i, k)
+        assert torch.equal(sample_h.re, want["h_mmse"].re[:, :8])
+        assert torch.equal(sample_h.im, want["h_mmse"].im[:, :8])
+        assert torch.equal(nxt, S.next_state(want["checksum"]))
+        assert float(want["cfo_true"].abs().max()) > 5e-4   # up to 1e-3 cycles a sample
+    (_, (top, _, _), _), (_, (low, _, _), _) = swept[0]
+    assert float(top["detect_rate"]) == 1.0 and float(top["evm_rms"]) < 0.1
+    assert float(low["evm_rms"]) > float(top["evm_rms"])
+
+
+def test_stream_step_spans_and_counts(swept):
+    """Each step is one ``entry.stream_step`` span holding ``seed``, the
+    generator's ``entry.gen_raw_system`` and ``summary``, and counts one
+    ``call.stream_step`` and one ``call.gen_raw_system``."""
+    steps, recs = swept
+    for _, _, counts in steps:
+        assert counts.get("call.stream_step") == 1 and counts.get("call.gen_raw_system") == 1
+    tops = [r for r in recs if r.name == "entry.stream_step"]
+    assert len(tops) == 2 and all(r.parent is None for r in tops)
+    for top in tops:
+        inside = [r for r in recs if r.call_id == top.call_id and r.parent == top.name]
+        assert [r.name for r in inside] == ["seed", "entry.gen_raw_system", "summary"]
+        assert all(top.start_ns <= r.start_ns <= r.end_ns <= top.end_ns for r in inside)
+
+
+@pytest.mark.parametrize("gen", ["kernel", "kernel_raw"])
+def test_resume_under_an_snr_cycle_is_bit_deterministic(tmp_path, gen):
+    """With an SNR cycle a batch's SNR is a function of its index: the
+    batches after the resume boundary equal an uninterrupted run's, bit for
+    bit, and each record names its SNR."""
+    kw = dict(snr_db=[40.0, 10.0], gen=gen, channel_model="A")
+    if gen == "kernel_raw":
+        kw.update(cfo_khz=20.0, equalize_with="h_mmse")
+    _run(tmp_path, "whole", 3, **kw)
+    _run(tmp_path, "resumed", 1, **kw)
+    res, _ = _run(tmp_path, "resumed", 3, **kw)
+    assert res["frames"] == 2 * B
+    for i in (1, 2):
+        a = np.load(tmp_path / "whole" / f"stream_{i:06d}.npz")
+        b = np.load(tmp_path / "resumed" / f"stream_{i:06d}.npz")
+        assert set(a.files) == set(b.files) and float(a["snr_db"]) == (40.0, 10.0)[i % 2]
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{i} {k}")
+
+
+def test_sweep_and_cfo_arguments_are_checked():
+    assert S.snr_cycle(30) == (30.0,) and S.snr_cycle(np.array([0, 10])) == (0.0, 10.0)
+    for gen in ("kernel", "xla", "raw"):
+        with pytest.raises(ValueError, match="kernel_raw"):
+            S.make_device_stream_step(B, gen=gen, cfo_khz=20.0, device="cpu")
+        with pytest.raises(ValueError, match="kernel_raw"):
+            S.make_device_stream_step(B, gen=gen, equalize_with="h_mmse", device="cpu")
+    for bad in ([], [10.0, float("nan")], float("inf")):
+        with pytest.raises(ValueError, match="snr_db"):
+            S.make_device_stream_step(B, snr_db=bad, gen="kernel_raw", device="cpu")
+    with pytest.raises(ValueError, match="cfo_khz"):
+        S.make_device_stream_step(B, gen="kernel_raw", cfo_khz=-1.0, device="cpu")
+    with pytest.raises(ValueError, match="equalize_with"):
+        S.make_device_stream_step(B, gen="kernel_raw", equalize_with="h_best", device="cpu")

@@ -47,6 +47,7 @@ FRAME = D.FRAME           # 1360 rows: long preamble + packet
 SEARCH, ADVANCE = 192, 4  # the detector's fine window and timing advance
 N_DISTINCT = (1 + C.N_BLOCKS) * C.N_FFT  # a frame's distinct samples: LTS and blocks
 _TWO_PI_F32 = float(np.float32(2.0 * np.pi))
+_count_call = spans.counter("call.gen_raw_system")
 _count_launch = spans.counter("launch.raw_gen_chain")
 _count_torch = spans.counter("launch.torch")
 
@@ -220,9 +221,11 @@ def gen_raw_system(seed, batch: int, txs: Cplx, tpre: Cplx, lts_ref: Cplx, ns: i
     kernel for CUDA tensors, the plain version for CPU tensors."""
     args = (seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshold,
             equalize_with, cfo_khz, return_field)
-    if txs.re.device.type == "cpu":
-        return gen_raw_plain(*args)
-    return _launch(*args)
+    _count_call()
+    with spans.span("entry.gen_raw_system"):
+        if txs.re.device.type == "cpu":
+            return gen_raw_plain(*args)
+        return _launch(*args)
 
 
 def bind(lib):
@@ -263,13 +266,16 @@ def _launch(seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshol
             equalize_with, cfo_khz, return_field, kernel=None) -> dict:
     """One launch; ``kernel`` = `bind` of another build of the source (the
     card probe's variants), else the package's own."""
+    spans.phase("check")
     _check(batch, ns, txs, tpre, lts_ref, equalize_with, cfo_khz)
+    spans.phase()
     require_cuda(txs.re)
     fn, err_string = kernel or _kernel_fn()
     dev = txs.re.device
     stride, _ = D.stride_of(True)
     cc = G.channel_consts(dev, channel_model)
     consts = F.chain_consts(dev, channel_model, snr_db)
+    spans.phase("outputs")
     field = [torch.empty((ns, batch), dtype=torch.float32, device=dev) for _ in range(2)]
     frame = torch.empty((batch, N_DISTINCT), dtype=torch.int32, device=dev)
     out, outs = F.chain_outputs(batch, dev, torch.bfloat16, True, False, True)
@@ -278,6 +284,7 @@ def _launch(seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshol
     h_true = Cplx(*(torch.empty((C.N_SC, batch), dtype=torch.float32, device=dev)
                     for _ in range(2)))
     cfo_true = torch.empty(batch, dtype=torch.float32, device=dev)
+    spans.phase("launch")
     ptrs = F.pointer_table([*txs, *tpre, *consts, *lts_ref, *_idft_consts(dev), *cc.wc,
                             cc.tscale, G.seed_tensor(seed, dev), *field, frame, *outs, *det_rows,
                             offs, *h_true, cfo_true])
@@ -286,6 +293,7 @@ def _launch(seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshol
                  cfo_scale(cfo_khz), F.EQUALIZE_WITH.index(equalize_with), float(threshold),
                  SEARCH, ADVANCE, stride, torch.cuda.current_stream(dev).cuda_stream)
     F.raise_on_error(err, "raw_gen_chain", err_string)
+    spans.phase()
     _count_launch()
     det, _, start, metric = det_rows
     _count_torch()   # det != 0: one elementwise kernel

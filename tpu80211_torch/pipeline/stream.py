@@ -52,9 +52,10 @@ cannot gather its sharded outputs into one file either.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import time
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -71,6 +72,7 @@ from tpu80211_torch.kernels import raw_gen_chain as RG
 from tpu80211_torch.ops.detect import lts_time_symbol
 from tpu80211_torch.parallel import mesh as M
 from tpu80211_torch.pipeline import sc
+from tpu80211_torch.utils import spans
 
 _STREAM_ESTS = F.OUT_NAMES
 GENERATORS = ("kernel", "xla", "raw", "kernel_raw")
@@ -78,6 +80,18 @@ MESH_GENERATORS = ("kernel", "kernel_raw")
 _SEED_MIX = 2654435761 % 2 ** 31   # the JAX step's state multiplier
 _BATCH_MIX = 65537                 # and its batch-index multiplier
 _RANK_MIX = 97003                  # and its dp-rank multiplier
+# the PyTorch kernels a step issues around its generator, counted under
+# launch.torch on a card: `kernel_seed`'s eight elementwise kernels (the
+# kernel generators), then the summary's and `next_state`'s five: for
+# kernel 1 lane sum + 7 ratios, for xla 4 (Σ|h|²) + 7 · 7, for raw and
+# kernel_raw 12 (`_raw_pack`; its `where` fills its scalar on the card)
+# + 5 (`_raw_rates`) + 14 (the NMSE); on a mesh the pack, the checksum's
+# sum, a cat, the all-reduce and the ratios, and `_state_of`'s four
+_SEED_LAUNCHES = 8
+_STEP_LAUNCHES = {"kernel": _SEED_LAUNCHES + 13, "xla": 58, "raw": 36,
+                  "kernel_raw": _SEED_LAUNCHES + 36}
+_MESH_LAUNCHES = {"kernel": _SEED_LAUNCHES + 15, "kernel_raw": _SEED_LAUNCHES + 24}
+_count_call = spans.counter("call.stream_step")
 
 
 class _Sink:
@@ -306,9 +320,21 @@ def _raw_summary(out: dict, offsets: torch.Tensor, h: Cplx, evm_den: float) -> d
     return summary
 
 
-def make_device_stream_step(batch: int, seed: int = 0, snr_db: float = 20.0, dtype=None,
+def snr_cycle(snr_db) -> tuple[float, ...]:
+    """``snr_db`` as the SNRs the device stream's batches take in turn: one
+    number, or a sequence (batch i at entry i mod its length).  Raises on an
+    empty sequence or a value that is not finite."""
+    snrs = (float(snr_db),) if np.ndim(snr_db) == 0 else tuple(float(v) for v in snr_db)
+    if not snrs or not all(math.isfinite(v) for v in snrs):
+        raise ValueError(f"snr_db must be a finite number or a non-empty sequence of them, "
+                         f"got {snr_db!r}")
+    return snrs
+
+
+def make_device_stream_step(batch: int, seed: int = 0, snr_db=20.0, dtype=None,
                             sample: int = 128, sync: bool = False, gen: str = "kernel",
-                            channel_model: str | None = None, mesh=None, device="cuda"):
+                            channel_model: str | None = None, mesh=None, cfo_khz: float = 0.0,
+                            equalize_with: str = "h_linear", device="cuda"):
     """Build the device-resident streamed step on ``device``.
 
     Returns ``(step, state0)``: ``step(i, state) -> (summary, sample_h,
@@ -320,6 +346,19 @@ def make_device_stream_step(batch: int, seed: int = 0, snr_db: float = 20.0, dty
     the batch; with ``kernel``, of the last 128 frames).  ``dtype`` (bf16 by
     default) is the sample storage and, with ``kernel``, eq's type.
     ``sync`` runs the chain's CFO/CPE stages (``xla`` only).
+
+    ``snr_db``: one SNR, or a sequence that batch i takes at entry
+    i mod its length (`snr_cycle`): its noise and, with the kernel
+    generators, its Wiener prior (``chain_consts``, cached per SNR).
+    ``cfo_khz`` and ``equalize_with`` go to ``gen_raw_system``
+    (``kernel_raw`` only; any other generator raises unless they are left
+    at their defaults): a per-stream CFO uniform in ±``cfo_khz``, which the
+    kernel then synchronises, and the estimate the equalizer blends.
+
+    Each step is an entry span ``entry.stream_step`` whose parts are
+    ``seed``, the generator's own entry span, and ``summary`` (the
+    reductions and the next state); it counts ``call.stream_step``, and on
+    a card the PyTorch kernels it issues under ``launch.torch``.
 
     ``mesh``: a ('dp', …) `parallel.make_mesh` mesh, to run the stream on
     every rank of its world (generators ``kernel`` and ``kernel_raw``):
@@ -336,6 +375,13 @@ def make_device_stream_step(batch: int, seed: int = 0, snr_db: float = 20.0, dty
     if mesh is not None and gen not in MESH_GENERATORS:
         raise ValueError(f"a mesh stream needs an in-kernel generator {MESH_GENERATORS}, "
                          f"got {gen!r}")
+    if gen != "kernel_raw" and (cfo_khz != 0.0 or equalize_with != "h_linear"):
+        raise ValueError(f"cfo_khz and equalize_with need gen='kernel_raw', got {gen!r}")
+    if not math.isfinite(cfo_khz) or cfo_khz < 0.0:
+        raise ValueError(f"cfo_khz must be finite and >= 0, got {cfo_khz}")
+    if equalize_with not in F.EQUALIZE_WITH:
+        raise ValueError(f"equalize_with must be one of {F.EQUALIZE_WITH}, got {equalize_with!r}")
+    snrs = snr_cycle(snr_db)
     dtype = torch.bfloat16 if dtype is None else dtype
     if batch % G.LANES or batch < G.LANES:
         raise ValueError(f"batch must be a positive multiple of {G.LANES}, got {batch}")
@@ -355,44 +401,58 @@ def make_device_stream_step(batch: int, seed: int = 0, snr_db: float = 20.0, dty
         evm_den = float((txs.re[:, :C.N_BLOCKS].double() ** 2
                          + txs.im[:, :C.N_BLOCKS].double() ** 2).sum())
     state0 = torch.zeros((), dtype=torch.int32, device=dev)
+    raw_kw = dict(channel_model=channel_model, cfo_khz=cfo_khz, equalize_with=equalize_with)
     if mesh is not None:
-        return _mesh_step(mesh, batch, seed, snr_db, dtype, sample, gen, channel_model,
-                          txs, tpre, lts, evm_den), state0
+        return _mesh_step(mesh, batch, seed, snrs, dtype, sample, gen, raw_kw, txs, tpre, lts,
+                          evm_den), state0
+    count_torch = spans.counter("launch.torch", _STEP_LAUNCHES[gen])
 
     def step(i: int, state: torch.Tensor):
-        if gen == "kernel":
-            out = G.fused_gen_chain(kernel_seed(seed, i, state), batch, txs, tpre, snr_db=snr_db,
-                                    eq_dtype=dtype, channel_model=channel_model,
-                                    stream_sums=True)
-            s = out["sums"].sum(-1)
-            summary = {name + "_nmse": s[k] / s[-1] for k, name in enumerate(_STREAM_ESTS)}
-        elif gen == "kernel_raw":
-            out = RG.gen_raw_system(kernel_seed(seed, i, state), batch, txs, tpre, lts,
-                                    snr_db=snr_db, channel_model=channel_model)
-            summary = _raw_summary(out, out["offsets"], out["h_true"], evm_den)
-        elif gen == "raw":
-            x, h, offs = synthetic_sc.generate_raw_lane_major(
-                _stream_generator(seed, i, dev), batch, txs, tpre, snr_db=snr_db, dtype=dtype,
-                channel_model=channel_model)
-            out = R.raw_rx_txconst_fused(x, lts, txs, tpre, stream_sums=True)
-            summary = _raw_summary(out, offs, h, evm_den)
-        else:
-            pkt, lp, h = synthetic_sc.generate_rx_lane_major(
-                _stream_generator(seed, i, dev), batch, txs, tpre, snr_db=snr_db, dtype=dtype,
-                channel_model=channel_model)
-            out = F.fused_rx_chain_txconst(txs, tpre, pkt, lp, sync=sync)
-            hp2 = (h.re * h.re + h.im * h.im).sum()
-            summary = {name + "_nmse": ((out[name].re - h.re) ** 2
-                                        + (out[name].im - h.im) ** 2).sum() / hp2
-                       for name in _STREAM_ESTS}
-        sample_h = out["h_mmse"].map(lambda t: t[:, :sample])
-        return summary, sample_h, next_state(out["checksum"])
+        _count_call()
+        with spans.span("entry.stream_step"):
+            spans.phase("seed")
+            snr = snrs[i % len(snrs)]
+            kseed = kernel_seed(seed, i, state) if gen in MESH_GENERATORS else None
+            spans.phase()
+            if gen == "kernel":
+                out = G.fused_gen_chain(kseed, batch, txs, tpre, snr_db=snr, eq_dtype=dtype,
+                                        channel_model=channel_model, stream_sums=True)
+                spans.phase("summary")
+                s = out["sums"].sum(-1)
+                summary = {name + "_nmse": s[k] / s[-1] for k, name in enumerate(_STREAM_ESTS)}
+            elif gen == "kernel_raw":
+                out = RG.gen_raw_system(kseed, batch, txs, tpre, lts, snr_db=snr, **raw_kw)
+                spans.phase("summary")
+                summary = _raw_summary(out, out["offsets"], out["h_true"], evm_den)
+            elif gen == "raw":
+                x, h, offs = synthetic_sc.generate_raw_lane_major(
+                    _stream_generator(seed, i, dev), batch, txs, tpre, snr_db=snr, dtype=dtype,
+                    channel_model=channel_model)
+                out = R.raw_rx_txconst_fused(x, lts, txs, tpre, stream_sums=True)
+                spans.phase("summary")
+                summary = _raw_summary(out, offs, h, evm_den)
+            else:
+                pkt, lp, h = synthetic_sc.generate_rx_lane_major(
+                    _stream_generator(seed, i, dev), batch, txs, tpre, snr_db=snr, dtype=dtype,
+                    channel_model=channel_model)
+                out = F.fused_rx_chain_txconst(txs, tpre, pkt, lp, sync=sync)
+                spans.phase("summary")
+                hp2 = (h.re * h.re + h.im * h.im).sum()
+                summary = {name + "_nmse": ((out[name].re - h.re) ** 2
+                                            + (out[name].im - h.im) ** 2).sum() / hp2
+                           for name in _STREAM_ESTS}
+            sample_h = out["h_mmse"].map(lambda t: t[:, :sample])
+            nxt = next_state(out["checksum"])
+            spans.phase()
+            if dev.type == "cuda":
+                count_torch()
+            return summary, sample_h, nxt
 
     return step, state0
 
 
-def _mesh_step(mesh, batch: int, seed: int, snr_db: float, dtype, sample: int, gen: str,
-               channel_model, txs: Cplx, tpre: Cplx, lts: Cplx | None, evm_den: float | None):
+def _mesh_step(mesh, batch: int, seed: int, snrs: tuple, dtype, sample: int, gen: str,
+               raw_kw: dict, txs: Cplx, tpre: Cplx, lts: Cplx | None, evm_den: float | None):
     """The mesh stream step of `make_device_stream_step` (the JAX package's
     ``_make_device_stream_step_mesh``): this rank's share of the batch, one
     all-reduce over dp."""
@@ -400,72 +460,134 @@ def _mesh_step(mesh, batch: int, seed: int, snr_db: float, dtype, sample: int, g
     local = batch // dp
     if local * dp != batch or local % G.LANES:
         raise ValueError(f"batch {batch} over dp {dp}: each rank needs a multiple of {G.LANES}")
+    count_torch = spans.counter("launch.torch", _MESH_LAUNCHES[gen])
+    cuda = txs.re.device.type == "cuda"
 
     def step(i: int, state: torch.Tensor):
-        kseed = kernel_seed(seed, i, state, rank)
-        if gen == "kernel":
-            out = G.fused_gen_chain(kseed, local, txs, tpre, snr_db=snr_db, eq_dtype=dtype,
-                                    channel_model=channel_model, stream_sums=True)
-            packed = M.all_reduce(torch.cat([out["sums"].sum(-1), out["checksum"].sum()[None]]),
-                                  group)
-            s = packed[:-1]
-            summary = {name + "_nmse": s[k] / s[-1] for k, name in enumerate(_STREAM_ESTS)}
-        else:
-            out = RG.gen_raw_system(kseed, local, txs, tpre, lts, snr_db=snr_db,
-                                    channel_model=channel_model)
-            packed = M.all_reduce(torch.cat([_raw_pack(out, out["offsets"]),
-                                             out["checksum"].sum()[None]]), group)
-            summary = _raw_rates(packed[:-1], batch, evm_den)
-        sample_h = out["h_mmse"].map(lambda t: t[:, :sample])
-        return summary, sample_h, _state_of(packed[-1])
+        _count_call()
+        with spans.span("entry.stream_step"):
+            spans.phase("seed")
+            snr = snrs[i % len(snrs)]
+            kseed = kernel_seed(seed, i, state, rank)
+            spans.phase()
+            if gen == "kernel":
+                out = G.fused_gen_chain(kseed, local, txs, tpre, snr_db=snr, eq_dtype=dtype,
+                                        channel_model=raw_kw["channel_model"], stream_sums=True)
+                spans.phase("summary")
+                packed = M.all_reduce(torch.cat([out["sums"].sum(-1),
+                                                 out["checksum"].sum()[None]]), group)
+                s = packed[:-1]
+                summary = {name + "_nmse": s[k] / s[-1] for k, name in enumerate(_STREAM_ESTS)}
+            else:
+                out = RG.gen_raw_system(kseed, local, txs, tpre, lts, snr_db=snr, **raw_kw)
+                spans.phase("summary")
+                packed = M.all_reduce(torch.cat([_raw_pack(out, out["offsets"]),
+                                                 out["checksum"].sum()[None]]), group)
+                summary = _raw_rates(packed[:-1], batch, evm_den)
+            sample_h = out["h_mmse"].map(lambda t: t[:, :sample])
+            nxt = _state_of(packed[-1])
+            spans.phase()
+            if cuda:
+                count_torch()
+            return summary, sample_h, nxt
 
     return step
 
 
-def run_stream_device(n_batches: int, batch: int, seed: int = 0, snr_db: float = 20.0,
+def device_stream(step, state: torch.Tensor, batches: Iterable[int],
+                  done: Callable | None = None) -> Iterator[tuple[int, dict, int]]:
+    """Drive a device stream ``step`` (`make_device_stream_step`) from
+    ``state`` over the batch indices ``batches``, and read each batch back.
+
+    Each step's summary, sample and next state start for pinned host memory
+    as soon as it is dispatched, so on the card's stream the copies come
+    before the next step's work; the batch is then read back one step
+    behind, once its copies are done, while the next step runs.  Yields
+    ``(i, record, state_after)`` a batch run, in order: ``record`` maps the
+    summary's names to numpy values and ``h_mmse_sample`` to the (sample,
+    53) complex estimates; ``state_after`` is the carried state after it.
+    ``done(i, state)``: the state after batch ``i`` where it needs no run
+    (a resumed batch), else None."""
+    pending = None
+    for i in batches:
+        after = done(i, state) if done is not None else None
+        if after is not None:
+            state = after
+            continue
+        summary, sample_h, state = step(i, state)
+        staged = (i, list(summary), _stage_step([*summary.values(), *sample_h, state]))
+        if pending is not None:
+            yield _read_back(*pending)
+        pending = staged
+    if pending is not None:
+        yield _read_back(*pending)
+
+
+def _stage_step(tensors: list) -> tuple[list, torch.cuda.Event | None]:
+    """Start copying ``tensors`` to the host behind the work that made them:
+    on a card into pinned memory without blocking, with an event after the
+    copies; on the CPU the tensors themselves."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+            for t in tensors]
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _read_back(i: int, names: list, staged) -> tuple[int, dict, int]:
+    host, event = staged
+    if event is not None:
+        event.synchronize()
+    *values, re, im, state_after = host
+    record = {k: v.numpy() for k, v in zip(names, values)}
+    h = np.empty(tuple(re.shape), np.complex64)
+    h.real, h.imag = re.numpy(), im.numpy()
+    record["h_mmse_sample"] = h.T   # (sample, 53)
+    return i, record, int(state_after)
+
+
+def run_stream_device(n_batches: int, batch: int, seed: int = 0, snr_db=20.0,
                       out_dir: str | None = None, resume: bool = True, sample: int = 128,
                       gen: str = "kernel", channel_model: str | None = None,
+                      cfo_khz: float = 0.0, equalize_with: str = "h_linear",
                       device="cuda") -> dict:
     """Drive the device-resident stream for ``n_batches`` batches, writing
     each batch's summaries and sampled MMSE estimates to
-    ``out_dir/stream_{i:06d}.npz``.
+    ``out_dir/stream_{i:06d}.npz`` (with ``snr_db``, the batch's SNR, where
+    ``snr_db`` is a sequence).
 
-    Steps are dispatched ahead and read back one batch behind, so the
-    readback overlaps the next batch's work.  Resume is bit-deterministic:
-    the state after each batch is restored from ``cursor.json`` for the
-    batches already done."""
+    Steps are dispatched ahead and read back one batch behind
+    (`device_stream`), so the readback overlaps the next batch's work.
+    Resume is bit-deterministic: the state after each batch is restored
+    from ``cursor.json`` for the batches already done, and a batch's SNR is
+    a function of its index."""
     step, state = make_device_stream_step(batch, seed, snr_db, sample=sample, gen=gen,
-                                          channel_model=channel_model, device=device)
+                                          channel_model=channel_model, cfo_khz=cfo_khz,
+                                          equalize_with=equalize_with, device=device)
+    snrs = snr_cycle(snr_db) if np.ndim(snr_db) else None
     sink = _Sink(out_dir, resume)
+
+    def done(i: int, state: torch.Tensor):
+        if not sink.done(i):
+            return None
+        saved = sink.state_after(i)
+        if saved is not None:
+            return torch.tensor(saved, dtype=torch.int32, device=state.device)
+        return step(i, state)[2]  # a cursor without states: advance by running the step again
+
     t0 = time.perf_counter()
-    pending = None
     n_frames = 0
-    for i in range(n_batches):
-        if sink.done(i):
-            saved = sink.state_after(i)
-            if saved is not None:
-                state = torch.tensor(saved, dtype=torch.int32, device=state.device)
-            else:  # a cursor without states: advance by running the step again
-                _, _, state = step(i, state)
-            continue
-        summary, sample_h, state = step(i, state)
-        if pending is not None:
-            n_frames += _finish_device(pending, sink, batch)
-        pending = (i, summary, sample_h, state)
-    if pending is not None:
-        n_frames += _finish_device(pending, sink, batch)
+    for i, record, state_after in device_stream(step, state, range(n_batches), done):
+        if snrs is not None:
+            record["snr_db"] = np.float64(snrs[i % len(snrs)])
+        if sink.dir:
+            np.savez_compressed(sink.dir / f"stream_{i:06d}.npz", **record)
+            sink.cursor.add(i)
+            sink.states[str(i)] = state_after
+            sink._write_cursor()
+        n_frames += batch
     dt = time.perf_counter() - t0
     return {"frames": n_frames, "batches": n_batches, "wall_s": dt,
             "frames_per_s": n_frames / dt if dt > 0 else None, "out_dir": sink.path_str()}
-
-
-def _finish_device(pending, sink: _Sink, batch: int) -> int:
-    i, summary, sample_h, state_after = pending
-    record = {k: v.cpu().numpy() for k, v in summary.items()}
-    record["h_mmse_sample"] = sample_h.to_complex().T.cpu().numpy()   # (sample, 53)
-    if sink.dir:
-        np.savez_compressed(sink.dir / f"stream_{i:06d}.npz", **record)
-        sink.cursor.add(i)
-        sink.states[str(i)] = int(state_after)
-        sink._write_cursor()
-    return batch

@@ -75,36 +75,40 @@ class Counters:
     ``launch.torch`` once a kernel a wrapper issues through PyTorch,
     ``call.<entry>`` once a public entry call.
 
-    Each name counts with an `itertools.count`, whose ``next`` is one C
-    call under the interpreter lock: it needs no lock of its own and loses
-    no update between threads.  Its value is the number it would give
-    next, which its repr, ``count(n)``, shows without taking it."""
+    Each (name, step) counts with an `itertools.count`, whose ``next`` is
+    one C call under the interpreter lock: it needs no lock of its own and
+    loses no update between threads.  Its value is the number it would give
+    next, which its repr, ``count(n)``, shows without taking it; a name's
+    count is the sum over its steps."""
 
     def __init__(self):
-        self._counts: dict[str, itertools.count] = {}
-        self._base: dict[str, int] = {}
+        self._counts: dict[tuple[str, int], itertools.count] = {}
+        self._base: dict[tuple[str, int], int] = {}
         self._lock = threading.Lock()
 
-    def counter(self, name: str) -> Callable[[], int]:
-        """A callable that adds one to ``name``."""
+    def counter(self, name: str, n: int = 1) -> Callable[[], int]:
+        """A callable that adds ``n`` to ``name`` (one call however large
+        ``n`` is: a step's several PyTorch kernels count at once)."""
         with self._lock:
-            return self._counts.setdefault(name, itertools.count()).__next__
+            return self._counts.setdefault((name, n), itertools.count(0, n)).__next__
 
     def count(self, name: str, n: int = 1) -> None:
-        step = self.counter(name)
-        for _ in range(n):
-            step()
+        self.counter(name, n)()
+
+    def _values(self) -> dict[tuple[str, int], int]:
+        return {k: int(repr(c)[6:].split(",")[0].rstrip(")")) for k, c in self._counts.items()}
 
     def snapshot(self) -> dict[str, int]:
         """Every nonzero count since the last `reset`."""
         with self._lock:
-            items = [(k, int(repr(c)[6:-1]) - self._base.get(k, 0))
-                     for k, c in self._counts.items()]
-        return {k: v for k, v in items if v}
+            out: dict[str, int] = {}
+            for (name, n), v in self._values().items():
+                out[name] = out.get(name, 0) + v - self._base.get((name, n), 0)
+        return {k: v for k, v in out.items() if v}
 
     def reset(self) -> None:
         with self._lock:
-            self._base = {k: int(repr(c)[6:-1]) for k, c in self._counts.items()}
+            self._base = self._values()
 
 
 counters = Counters()
