@@ -577,6 +577,9 @@ STAGING_CASES = {
     "max-search-dec64-f32": dict(dtype="f32", search=D.MAX_SEARCH, decimate=64),
     "max-search-dec64-bf16": dict(dtype="bf16", search=D.MAX_SEARCH, decimate=64),
     "max-search-dec64-int8": dict(dtype="int8", search=D.MAX_SEARCH, decimate=64),
+    "widest-union-dec64-f32": dict(dtype="f32", b=64, widest=True, decimate=64),
+    "widest-union-dec64-bf16": dict(dtype="bf16", b=64, widest=True, decimate=64),
+    "widest-union-dec64-int8": dict(dtype="int8", b=64, widest=True, decimate=64),
     "ns-1408": dict(dtype="bf16", ns=1408),
     "ns-1408-full-res-f32": dict(dtype="f32", ns=1408, decimate=False),
     "ns-8192": dict(dtype="bf16", ns=8192, b=256),
@@ -623,6 +626,42 @@ def test_staged_windows_match_plain(case, dev):
         assert got["detected"].all()
     if "empty" in STAGING_CASES[case]:
         assert not got["detected"][32 * STAGING_CASES[case]["empty"][0]:][:32].any()
+
+
+def _tail_streams(dtype: str, dev, b: int = 96):
+    """b lane-major streams whose frame starts in the last 470 rows (what of
+    it fits), over 1e-4 AWGN: detection's windows end at n_pair (NS − 132)
+    and at NS, so every stream's last matched-filter item is ragged."""
+    cap = load_capture()
+    frame = np.concatenate([cap.rx_lptot, cap.rx_packet])
+    rng = np.random.default_rng(b)
+    x = (rng.standard_normal((b, NS)) + 1j * rng.standard_normal((b, NS))) * 1e-4
+    for i, o in enumerate(rng.integers(NS - 470, NS - 200, b)):
+        x[i, o:] += frame[:NS - o]
+    return _stream_planes(x, dtype, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("decimate", [16, 64])
+def test_windows_at_the_streams_end_match_plain(dtype, decimate, dev):
+    """Frames in the streams' last rows: detection and the raw receiver
+    find what the plain version finds, index for index."""
+    x, lsb = _tail_streams(dtype, dev)
+    got = D.detect_streams(x, _taps(dev), decimate=decimate)
+    raw = R.raw_rx_txconst_fused(x, _taps(dev), *_spectra(dev), decimate=decimate, lsb=lsb,
+                                 stream_sums=True)
+    torch.cuda.synchronize()
+    want = D.detect_plain(x, _taps(dev), decimate=decimate)
+    assert want.detected.all()
+    n_pair = NS - 132
+    assert bool((want.coarse + 2 * (192 + decimate) > n_pair).all())
+    for k in ("detected", "coarse", "start"):
+        assert torch.equal(got[k], getattr(want, k)), k
+        assert torch.equal(raw[k], getattr(want, k)), k
+    for m in (got["metric"], raw["metric"]):
+        err = ((m - want.metric).abs() / want.metric.abs().clamp_min(1e-30)).max()
+        assert float(err) <= 1e-5
 
 
 # local (spill) bytes a thread of the raw receiver's kernel before the

@@ -23,11 +23,12 @@
 //
 // What bounds them on this card.  Detection reads NS rows per stream once
 // into the metric scan (~2 x NS x 2 planes loads, coalesced) and evaluates
-// the matched filter at ~2*search + 68 offsets of 64 taps in f64: ~1.2e5
-// f64 FMAs per stream at the default search of 192, ~4e9 at B = 32768
-// (~0.25 ms at the H100 SXM's ~34 TFLOP/s f64 without tensor cores).  The
-// filter's windows start at each stream's own coarse row; read in place, a
-// warp's load touched 32 rows, and those loads set detection's time.  Now
+// the matched filter at ~2*search + 68 offsets of 64 taps in f64: ~1.5e5
+// f64 FMAs per stream at the default search of 192 as the tensor cores
+// take them (72 taps, 512 offsets), ~4.8e9 at B = 32768 (~0.14 ms at the
+// H100 SXM's 67 TFLOP/s of f64 on the tensor cores, twice its CUDA cores').
+// The filter's windows start at each stream's own coarse row; read in place,
+// a warp's load touched 32 rows, and those loads set detection's time.  Now
 // each block stages its windows in shared memory by coalesced row loads
 // (detect.cuh).  Placement moves sig, noise and the output once each, NS x B x 2
 // planes of each type (1.07 GB at B = 32768 with bf16 sig and f32 noise,

@@ -39,13 +39,14 @@
 //      The copy walks the group's union of windows row by row: a warp's load
 //      is 32/G rows of G neighbouring streams, one 32-byte sector each
 //      (bf16: G = 16 at the default search; f32: G = 8), and a lane whose
-//      window does not hold its row does not load.
+//      window does not hold its row does not load.  Rows past a window, up
+//      to the last item's, are zeroed.
 //   3. From shared memory, with all 256 threads: the peak metric in items of
-//      (stream, one of 8 chunks of its window's grid points), and the
-//      matched filter in items of (stream, run of MF_RUN offsets): a thread
-//      keeps MF_RUN rows in registers and walks the 64 taps once, so each
-//      row and tap is read from shared memory once per run.  Items of
-//      streams without a window skip.  The |MF| values go to shared memory.
+//      (stream, one of 8 chunks of its window's grid points), then the
+//      matched filter on the FP64 tensor cores in warp items of (stream, run
+//      of MF_ITEM offsets), a Toeplitz product (mf_item).  Items of streams
+//      without a window skip.  The |MF| values go to shared memory, stream-
+//      major.
 //   4. The first argmax of pair, split over 256/G slices of each window and
 //      reduced across them, the smallest index winning a tie.
 // Windows start at each stream's own row: read in place, a warp's load
@@ -68,7 +69,10 @@ constexpr int THREADS = LANES * WARPS;
 constexpr int FRAME = 160 + 1200;  // long preamble + packet rows
 constexpr int MF_EXTRA = 68;       // matched-filter offsets past the last pair index
 constexpr int WIN_EXTRA = 2 * LAG + 3;  // staged rows past the fine window: 68 + 63
-constexpr int MF_RUN = 8;          // consecutive matched-filter offsets per item
+constexpr int MF_ROWS = 16;        // rows of 8 offsets a matched-filter item (m16n8k4's M)
+constexpr int MF_ITEM = 8 * MF_ROWS;  // matched-filter offsets an item
+constexpr int MF_K = LAG + 8;      // the Toeplitz block's depth: 64 taps shifted by 0..7
+constexpr int H_PAD = 8;           // zero taps before tap 0 in Smem::h
 constexpr int COPY_UNROLL = 4;     // rows in flight a thread in the copy
 constexpr size_t SMEM_TARGET = 96 * 1024;  // a group's stage and |MF|: two blocks per SM
 
@@ -122,7 +126,7 @@ __device__ __forceinline__ double2 unpack(__nv_bfloat162 v) {
 __device__ __forceinline__ double2 unpack(char2 v) { return make_double2(v.x, v.y); }
 
 struct Smem {
-  double2 h[LAG];
+  double2 h[H_PAD + MF_K];  // the taps at [H_PAD, H_PAD + 64), zero around them
   double dred[THREADS];  // per-thread partials
   double pk[THREADS];
   int ired[THREADS];
@@ -140,6 +144,7 @@ struct Layout {
   int log2_group;  // streams staged at once: 1 << log2_group
   int row_stride;  // staged rows a stream (odd, in pairs)
   int n_mf;        // matched-filter offsets of a full window
+  int mf_stride;   // |MF| values a stream
   size_t mf_at;    // byte offset of the |MF| values in Smem
   size_t bytes;    // the block's shared memory
 };
@@ -149,13 +154,16 @@ __host__ __device__ inline Layout layout(int search, int stride, int decimated) 
   using P = typename Pair<T>::type;
   const int sf = search + (decimated ? stride : 0);
   const int n_mf = 2 * sf + MF_EXTRA;
-  // a run's rows reach MF_RUN + 62 past its first offset
-  const int sp = (n_mf + MF_RUN + LAG - 1) | 1;
+  // the last item's rows reach LAG - 1 past its offsets
+  const int sp = ((n_mf + MF_ITEM - 1) / MF_ITEM * MF_ITEM + LAG) | 1;
+  // 2 mod 4 (n_mf is even): step 4's reads of 16 streams at two neighbouring
+  // offsets fall on 32 distinct banks
+  const int ms = n_mf | 2;
   for (int lg = 5;; --lg) {
     const size_t stage = (sizeof(P) * (static_cast<size_t>(sp) << lg) + 15) / 16 * 16;
     const size_t mf_at = offsetof(Smem, rest) + stage;
-    const size_t bytes = mf_at + sizeof(float) * (static_cast<size_t>(n_mf) << lg);
-    if (bytes <= SMEM_TARGET || lg == 0) return Layout{lg, sp, n_mf, mf_at, bytes};
+    const size_t bytes = mf_at + sizeof(float) * (static_cast<size_t>(ms) << lg);
+    if (bytes <= SMEM_TARGET || lg == 0) return Layout{lg, sp, n_mf, ms, mf_at, bytes};
   }
 }
 
@@ -280,39 +288,52 @@ __device__ __forceinline__ double peak_chunk(const X& x, int stride, int i_lo, i
   return peak;
 }
 
-// |MF| at MF_RUN consecutive offsets from staged rows: row q + t meets tap
-// t in output q.  The thread keeps MF_RUN rows in registers (a ring: at tap
-// t, slot (t + k) % MF_RUN holds row t + k) and walks the taps in order, so
-// each output sums its taps in increasing t, in Acc, rounded to f32 once.
+__device__ __forceinline__ void clear(float2& v) { v = make_float2(0.f, 0.f); }
+__device__ __forceinline__ void clear(__nv_bfloat162& v) { v = __floats2bfloat162_rn(0.f, 0.f); }
+__device__ __forceinline__ void clear(char2& v) { v = make_char2(0, 0); }
+
+// d += A B on the FP64 tensor cores, A 16x4 (row-major), B 4x8, f64 sums.
+// Lane (g, t) = (lane / 4, lane % 4) holds A[g][t] and A[g + 8][t] in a0, a1,
+// B[t][g] in b, and C[g][2t], C[g][2t + 1], C[g + 8][2t], C[g + 8][2t + 1] in d.
+__device__ __forceinline__ void mma_f64(double (&d)[4], double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// |MF| at the MF_ITEM offsets q = 8a + b (a < MF_ROWS, b < 8) from staged
+// rows x, by one warp: y[q] = sum_u x[8a + u] conj(h[u - b]) over u < MF_K,
+// the Hankel rows A[a][u] = x[8a + u] times the Toeplitz taps H[u][b] =
+// h[u - b] (zero outside [0, 64)), as yr = Xr Hr + Xi Hi and yi = Xi Hr +
+// Xr (-Hi) in K-steps of 4.  Products of f32 values are exact in f64; the
+// sums are rounded to f32 once.  Rows a and a + 8 are 64 rows apart, so
+// lane (g, t) reads rows 8g + t + 4k and 64 on; offsets q >= n are not
+// stored.
 template <typename P>
-__device__ __forceinline__ void mf_run(const P* rows, const double2* h, float (&mag)[MF_RUN]) {
+__device__ __forceinline__ void mf_item(const P* x, const double2* h, int lane, int n,
+                                        float* mag) {
   using Acc = double;
-  Acc wr[MF_RUN], wi[MF_RUN], yr[MF_RUN], yi[MF_RUN];
-#pragma unroll
-  for (int i = 0; i < MF_RUN - 1; ++i) {
-    const double2 v = unpack(rows[i]);
-    wr[i] = v.x;
-    wi[i] = v.y;
+  const int g = lane >> 2, t = lane & 3;
+  const P* xa = x + 8 * g + t;
+  const double2* hb = h + H_PAD + t - g;
+  Acc yr[4] = {0.0, 0.0, 0.0, 0.0}, yi[4] = {0.0, 0.0, 0.0, 0.0};
+  // two K-steps a turn: unrolled whole, the steps' loads in flight spill
+  // (f32 detect) and run no faster
+#pragma unroll 2
+  for (int k = 0; k < MF_K; k += 4) {
+    const double2 a0 = unpack(xa[k]), a1 = unpack(xa[k + LAG]);
+    const double2 b = hb[k];
+    mma_f64(yr, a0.x, a1.x, b.x);
+    mma_f64(yr, a0.y, a1.y, b.y);
+    mma_f64(yi, a0.y, a1.y, b.x);
+    mma_f64(yi, a0.x, a1.x, -b.y);
   }
 #pragma unroll
-  for (int k = 0; k < MF_RUN; ++k) yr[k] = yi[k] = 0.0;
-  for (int t0 = 0; t0 < LAG; t0 += MF_RUN) {
-#pragma unroll
-    for (int j = 0; j < MF_RUN; ++j) {
-      const double2 v = unpack(rows[t0 + j + MF_RUN - 1]);
-      wr[(j + MF_RUN - 1) % MF_RUN] = v.x;
-      wi[(j + MF_RUN - 1) % MF_RUN] = v.y;
-      const Acc hr = h[t0 + j].x, hi = h[t0 + j].y;
-#pragma unroll
-      for (int k = 0; k < MF_RUN; ++k) {
-        const int w = (j + k) % MF_RUN;
-        yr[k] += wr[w] * hr + wi[w] * hi;
-        yi[k] += wi[w] * hr - wr[w] * hi;
-      }
-    }
+  for (int j = 0; j < 4; ++j) {
+    const int q = 8 * (g + 8 * (j >> 1)) + 2 * t + (j & 1);
+    if (q < n) mag[q] = static_cast<float>(sqrt(yr[j] * yr[j] + yi[j] * yi[j]));
   }
-#pragma unroll
-  for (int k = 0; k < MF_RUN; ++k) mag[k] = static_cast<float>(sqrt(yr[k] * yr[k] + yi[k] * yi[k]));
 }
 
 // Detection of stream f (live lanes only load).  Every thread of the block
@@ -325,7 +346,9 @@ __device__ Result run(const Config& c, Smem& s, long long f, bool live, int lane
   const Stream<T> x{xr, xi, c.batch, f};
   const int st = c.stride;
   const int nm = c.decimated ? (c.ns - LAG) / st - LAG / st + 1 : c.ns - 2 * LAG + 1;
-  for (int t = threadIdx.x; t < LAG; t += THREADS) s.h[t] = make_double2(c.h_re[t], c.h_im[t]);
+  for (int t = threadIdx.x; t < H_PAD + MF_K; t += THREADS)
+    s.h[t] = t >= H_PAD && t < H_PAD + LAG ? make_double2(c.h_re[t - H_PAD], c.h_im[t - H_PAD])
+                                            : make_double2(0.0, 0.0);
 
   // -- 1. first threshold crossing: warp g scans one contiguous range ---------
   {
@@ -408,26 +431,26 @@ __device__ Result run(const Config& c, Smem& s, long long f, bool live, int lane
           if (r >= lo && r < hi) dst[r] = pair_of(re[u], im[u]);
         }
       }
+      // rows past the window meet only zero taps in the offsets kept, but a
+      // NaN there would still reach them
+      if (lo >= 0)
+        for (int r = hi + (t >> lg); r < lo + sp; r += step) clear(dst[r]);
     }
     __syncthreads();
 
     // 3. the peak metric in items (stream, chunk), then the matched filter in
-    // items (stream, run)
+    // warp items (stream, run of MF_ITEM offsets)
     if (t < gs * WARPS)
       s.pk[t] = lo >= 0 ? peak_chunk(Staged<P>{stage + js * sp, lo}, st, (lo + st - 1) / st,
                                      min(nm, (lo + 2 * sf + st - 1) / st), t >> lg)
                         : 0.0;
     {
-      const int n = s.n_mf[g0 + js];
-      const int runs = (lay.n_mf + MF_RUN - 1) / MF_RUN;
-      for (int item = t; item < runs << lg; item += THREADS) {
-        const int q0 = (item >> lg) * MF_RUN;
+      const int n_items = (lay.n_mf + MF_ITEM - 1) / MF_ITEM;
+      for (int item = t >> 5; item < n_items << lg; item += WARPS) {
+        const int j = item & (gs - 1), q0 = (item >> lg) * MF_ITEM;
+        const int n = s.n_mf[g0 + j];
         if (q0 >= n) continue;
-        float mag[MF_RUN];
-        mf_run(stage + js * sp + q0, s.h, mag);
-#pragma unroll
-        for (int k = 0; k < MF_RUN; ++k)
-          if (q0 + k < n) mf[((q0 + k) << lg) + js] = mag[k];
+        mf_item(stage + j * sp + q0, s.h, t & 31, n - q0, mf + j * lay.mf_stride + q0);
       }
     }
     __syncthreads();
@@ -436,7 +459,8 @@ __device__ Result run(const Config& c, Smem& s, long long f, bool live, int lane
     {
       double best = 0.0;
       int best_i = 0;
-      auto at = [&](int q) { return static_cast<double>(mf[(q << lg) + js]); };
+      const float* mfj = mf + js * lay.mf_stride;
+      auto at = [&](int q) { return static_cast<double>(mfj[q]); };
       auto mf5 = [&](int q) { return ((at(q) + at(q + 1)) + (at(q + 2) + at(q + 3))) + at(q + 4); };
       const int n_q = s.n_mf[g0 + js] - MF_EXTRA;
       for (int q = t >> lg; q < n_q; q += THREADS >> lg) {

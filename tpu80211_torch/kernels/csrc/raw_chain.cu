@@ -15,7 +15,7 @@
 //
 // What bounds it on this card.  The detection stage (detect.cuh: the f64
 // matched filter over ~2*search + 68 offsets from windows staged in shared
-// memory, the metric scan) and the chain's loads.  The chain's DFTs run on
+// memory, on the FP64 tensor cores; the metric scan) and the chain's loads.  The chain's DFTs run on
 // the tensor cores (chain.cuh; bf16 and int8 streams), so its arithmetic no
 // longer bounds it.  Its loads start at a different row in every lane, so a
 // warp's row load touches up to 32 rows instead of one 64-byte (bf16) span:

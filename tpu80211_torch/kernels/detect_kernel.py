@@ -124,6 +124,20 @@ def _window_sums(v: torch.Tensor, w: int) -> torch.Tensor:
     return c[w:] - c[:-w]
 
 
+def mf_plain(xr: torch.Tensor, xi: torch.Tensor, lts_ref: Cplx) -> torch.Tensor:
+    """The matched filter's magnitude |Σ_t x[d+t]·conj(h[t])| of (NS, B)
+    float64 planes at every offset d < NS − 64, by banded products in
+    float64, rounded to float32 once: (NS − 64, B)."""
+    ns, b = xr.shape
+    wr, wi = (t.to(torch.float64) for t in mf_taps(lts_ref))
+    n_chunks = (ns - MF_CHUNK) // LAG + 1
+    cr = torch.stack([xr[c * LAG:c * LAG + MF_CHUNK] for c in range(n_chunks)])
+    ci = torch.stack([xi[c * LAG:c * LAG + MF_CHUNK] for c in range(n_chunks)])
+    yr = (wr @ cr + wi @ ci).reshape(-1, b)[:ns - LAG]
+    yi = (wr @ ci - wi @ cr).reshape(-1, b)[:ns - LAG]
+    return torch.sqrt(yr * yr + yi * yi).to(torch.float32)
+
+
 def detect_plain(x: Cplx, lts_ref: Cplx, threshold: float = DEFAULT_THRESHOLD,
                  search: int = 192, advance: int = 4, decimate=False) -> Detection:
     """Detection of lane-major (NS, B) streams in plain PyTorch, on any
@@ -156,14 +170,8 @@ def detect_plain(x: Cplx, lts_ref: Cplx, threshold: float = DEFAULT_THRESHOLD,
     else:
         coarse, search_fine = cross, search
 
-    # -- matched filter by banded products, then 5-sums and the pair sum --
-    wr, wi = (t.to(f64) for t in mf_taps(lts_ref))
-    n_chunks = (ns - MF_CHUNK) // LAG + 1
-    cr = torch.stack([xr[c * LAG:c * LAG + MF_CHUNK] for c in range(n_chunks)])
-    ci = torch.stack([xi[c * LAG:c * LAG + MF_CHUNK] for c in range(n_chunks)])
-    yr = (wr @ cr + wi @ ci).reshape(-1, b)[:ns - LAG]
-    yi = (wr @ ci - wi @ cr).reshape(-1, b)[:ns - LAG]
-    mf = torch.sqrt(yr * yr + yi * yi).to(torch.float32).to(f64)       # (NS−64, B)
+    # -- matched filter, then 5-sums and the pair sum --
+    mf = mf_plain(xr, xi, lts_ref).to(f64)                             # (NS−64, B)
     mf2 = mf[:-1] + mf[1:]
     mf5 = (mf2[:-2] + mf2[2:])[:-1] + mf[4:]
     pair = mf5[:-LAG] + mf5[LAG:]                                       # (NS−132, B)

@@ -11,26 +11,38 @@ time a variant saves is what the removed part costs.  ``DIAGNOSTICS`` edit
 ``raw_gen_chain.cu`` share; each builds into ``detect.cu`` and
 ``raw_chain.cu``:
 
-* ``no_mf_loads``: the matched filter multiplies made-up rows in place of
-  the staged ones (the price of its shared-memory reads);
+* ``no_mf_loads``: the matched filter's tiles multiply made-up fragments,
+  rows and taps, in place of the staged ones (the price of its
+  shared-memory reads and their conversions to f64, less the few integer
+  to f64 conversions a K-step that make the fragments up);
+* ``no_mf_convert``: the tiles read the staged rows but take their bits as
+  made-up f64 values (the price of the conversions to f64);
 * ``shared_rows``: every stream's window is lane 0's (the same rows, so
   the copy walks one window, not the union of 32): the price of the windows'
   spread;
-* ``f32_mf``: the matched filter accumulates in f32 (the price of the f64
-  arithmetic; its results are wrong on purpose);
+* ``f32_mf``: the tiles' f64 products on the tensor cores become four f32
+  FMAs a product on the CUDA cores, into f32 accumulators (the price of the
+  f64 products; its results are wrong on purpose);
 * ``no_copy``: the windows are not staged (the price of the copy);
 * ``no_peak_scan``: the detected streams' peak metric is skipped;
 * ``running_scan``: the scans take a running window (each product added,
   then taken away) in place of block sums (the price of the running form);
 * ``no_scan``: the threshold scan is skipped: lane l crosses at grid point
   2 + l mod 38, so the windows spread as the workload's do;
-* ``no_mf``: the matched filter is skipped.
+* ``no_mf``: the matched filter's tiles are skipped.
 
-The parent body (each lane reading its own window from device memory) was
-probed with the same diagnostics on its own lines: ``no_mf_loads``,
-``f32_mf``, ``no_peak_scan``, ``no_scan`` and ``no_mf`` as above, and
-``shared_rows`` as every lane reading lane 0's window (PERF.md §5); its
-scans took the running window.
+Through ``raw_chain`` a variant that moves the starts also moves the rows
+the chain reads (``lane0_chain_rows`` prices those), so its time there
+prices more than the part it removes; ``detect`` alone has no such
+confound.
+
+The parent body (each thread summing runs of 8 offsets by f64 FMAs on the
+CUDA cores) took the same names for the same questions: ``no_mf_loads``
+made-up rows, ``f32_mf`` f32 sums, ``no_mf`` no runs.  The body before it
+(each lane reading its own window from device memory) was probed with
+``no_mf_loads``, ``f32_mf``, ``no_peak_scan``, ``no_scan`` and ``no_mf``
+as above, and ``shared_rows`` as every lane reading lane 0's window
+(PERF.md §5); its scans took the running window.
 
 ``CHAIN_DIAGNOSTICS`` edit ``raw_chain.cu`` alone:
 
@@ -69,13 +81,37 @@ B, NS, SEED, NOISE = 32768, 2048, 0, 1e-4
 
 DIAGNOSTICS = {
     "no_mf_loads": (
-        "      const double2 v = unpack(rows[t0 + j + MF_RUN - 1]); -> "
-        "      const double2 v = make_double2(0.25 * j, 0.5 - 0.125 * t0);"),
+        "    const double2 a0 = unpack(xa[k]), a1 = unpack(xa[k + LAG]);\n"
+        "    const double2 b = hb[k]; -> "
+        "    const double2 a0 = make_double2(0.25 * k, 0.5 - 0.125 * g), "
+        "a1 = make_double2(0.125 * t, 0.25 * k);\n"
+        "    const double2 b = make_double2(0.5 * k - t, 1.0 - g);"),
+    "no_mf_convert": (
+        "// |MF| at the MF_ITEM offsets -> "
+        "__device__ __forceinline__ double2 bits_of(float2 v) {\n"
+        "  return make_double2(__hiloint2double(__float_as_int(v.y), __float_as_int(v.x)),\n"
+        "                      __hiloint2double(__float_as_int(v.x), __float_as_int(v.y)));\n}\n"
+        "__device__ __forceinline__ double2 bits_of(__nv_bfloat162 v) {\n"
+        "  const int w = *reinterpret_cast<const int*>(&v);\n"
+        "  return make_double2(__hiloint2double(w, w), __hiloint2double(w, ~w));\n}\n"
+        "__device__ __forceinline__ double2 bits_of(char2 v) {\n"
+        "  const int w = *reinterpret_cast<const short*>(&v);\n"
+        "  return make_double2(__hiloint2double(w, w), __hiloint2double(w, -w));\n}\n\n"
+        "// |MF| at the MF_ITEM offsets ;; "
+        "    const double2 a0 = unpack(xa[k]), a1 = unpack(xa[k + LAG]); -> "
+        "    const double2 a0 = bits_of(xa[k]), a1 = bits_of(xa[k + LAG]);"),
     "shared_rows": (
         "  if (g == 0) {\n    const int i_end -> "
         "  const int coarse_w = __shfl_sync(0xffffffffu, coarse, 0);\n"
         "  if (g == 0) {\n    const int coarse = coarse_w;\n    const int i_end"),
-    "f32_mf": "  using Acc = double; ->   using Acc = float;",
+    "f32_mf": (
+        "  using Acc = double; ->   using Acc = float; ;; "
+        "// |MF| at the MF_ITEM offsets -> "
+        "__device__ __forceinline__ void mma_f64(float (&d)[4], double a0, double a1, double b) {\n"
+        "  const float x0 = a0, x1 = a1, y = b;\n"
+        "  d[0] = fmaf(x0, y, d[0]);\n  d[1] = fmaf(x0, -y, d[1]);\n"
+        "  d[2] = fmaf(x1, y, d[2]);\n  d[3] = fmaf(x1, -y, d[3]);\n}\n\n"
+        "// |MF| at the MF_ITEM offsets"),
     "no_copy": (
         "r0 < r_hi; r0 += COPY_UNROLL * step) { -> r0 < 0 * r_hi; r0 += COPY_UNROLL * step) {"),
     "no_peak_scan": (
