@@ -272,7 +272,7 @@ def test_chain_dft_runs_on_the_tensor_cores(dev):
 
 @pytest.fixture(scope="module")
 def library_twins(tmp_path_factory):
-    """(fused_chain, raw_chain) bound from builds with the chain probe's
+    """(fused_chain, raw_chain) libraries built with the chain probe's
     ``library_sincos`` edit."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernels run only on the card")
@@ -285,7 +285,7 @@ def library_twins(tmp_path_factory):
     with ThreadPoolExecutor(2) as pool:
         fused, raw = pool.map(lambda src: _variants.build(src, edits, out / src.stem)["twin"][0],
                               (FV.SOURCE, FV.RAW_SOURCE))
-    return F.bind(fused), R.bind(raw)
+    return F.LIB.at(fused), R.LIB.at(raw)
 
 
 def _same_bits(got: dict, want: dict) -> None:
@@ -331,7 +331,7 @@ def test_sync_chain_equals_its_library_sincos_twin(case, library_twins, dev):
     args = (rp, rl, tx, F.chain_consts(dev, "A", 40.0), 0.0, extra.get("lsb", 1.0), False,
             "h_mmse", True, True)
     got = F._launch(*args)
-    twin = F._launch(*args, kernel=library_twins[0])
+    twin = F._launch(*args, lib=library_twins[0])
     torch.cuda.synchronize()
     _same_bits(got, twin)
     if cfo == 0.0:
@@ -365,7 +365,7 @@ def test_raw_sync_equals_its_library_sincos_twin(dtype, library_twins, dev):
     args = (x, _taps(dev), *_spectra(dev), None, 192, 4, 0.0, True, False, "A", 40.0, lsb,
             False, "h_mmse", 16)
     got = R._launch(*args)
-    twin = R._launch(*args, kernel=library_twins[1])
+    twin = R._launch(*args, lib=library_twins[1])
     torch.cuda.synchronize()
     _same_bits(got, twin)
     assert int(got["detected"].sum()) >= B - 50

@@ -4,6 +4,7 @@ on, each record lies on the profiler's own clock, spans and phases nest by
 parent and call id, and the ring keeps its bound; set-up spans record with
 spans off; the counters add up across threads."""
 
+import statistics
 import sys
 import threading
 
@@ -67,8 +68,11 @@ def test_off_leaves_no_event_in_a_later_trace(fresh, chain_inputs):
 
 
 def test_profiler_turns_spans_on_and_shares_its_clock(fresh, chain_inputs):
-    """Under ``torch.profiler`` every record has its kineto event, and lies
-    within 50 µs of the event's bounds."""
+    """Under ``torch.profiler`` every record has its kineto event and lies
+    inside it, and the two clocks agree: the median distance of the records'
+    starts from their events' starts is within 50 µs, and so is that of the
+    ends.  The median, since on a loaded CPU one record can be preempted
+    between its range and its stamp."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         assert spans.on()
         for _ in range(3):
@@ -87,13 +91,17 @@ def test_profiler_turns_spans_on_and_shares_its_clock(fresh, chain_inputs):
         if e.name().startswith(spans.PREFIX):
             events.setdefault(e.name()[len(spans.PREFIX):], []).append(
                 (e.start_ns(), e.start_ns() + e.duration_ns()))
+    starts, ends = [], []
     for name in {r.name for r in recs}:
         mine = sorted((r.start_ns, r.end_ns) for r in recs if r.name == name)
         theirs = sorted(events[name])
         assert len(mine) == len(theirs), name
         for (s, e), (ks, ke) in zip(mine, theirs):
-            assert abs(s - ks) <= 50_000 and abs(e - ke) <= 50_000, (name, s - ks, e - ke)
-            assert ks <= s <= e <= ke, name
+            assert ks <= s <= e <= ke, (name, s - ks, e - ke)
+            starts.append(s - ks)
+            ends.append(ke - e)
+    assert statistics.median(starts) <= 50_000, sorted(starts)
+    assert statistics.median(ends) <= 50_000, sorted(ends)
 
 
 def test_parent_and_call_id_nest(fresh):

@@ -1,4 +1,4 @@
-"""Build the CUDA sources into a shared library and load it with ctypes.
+"""Build the CUDA sources into shared libraries (``_ffi`` loads them).
 
 The sources in ``csrc/`` have a plain C interface (no PyTorch headers), so
 ``nvcc`` builds them in seconds.  The library is built at first use into
@@ -10,8 +10,6 @@ failed build raises; nothing falls back.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import hashlib
 import os
 import pathlib
@@ -101,12 +99,3 @@ def build_all(sources, build_dir: pathlib.Path = BUILD_DIR) -> list[pathlib.Path
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return libs
-
-
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``.  Callers that load
-    several may first build them in parallel with ``build_all``.  A set-up
-    span, ``setup.load.<name>``, covers it."""
-    with spans.setup_span(f"load.{name}"):
-        return ctypes.CDLL(str(build(CSRC / f"{name}.cu")))

@@ -7,14 +7,14 @@ name, to edit a header the source includes as well.  Each variant is written
 to a directory of its own, the source and every header it edits: there a
 quoted ``#include`` finds the edited header before the one in ``csrc/``.
 Each builds with its own ``nvcc``, all started together, and reports the
-registers and spill stores that ``-Xptxas -v`` prints per instantiation.
-Times are CUDA events around back-to-back calls.  Needs a CUDA card and
-nvcc.
+registers and spill stores that ``-Xptxas -v`` prints per instantiation; the
+wrapper's `Library.at` of a build is its handle, which the wrapper's
+``lib=`` takes.  Times are CUDA events around back-to-back calls.  Needs a
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
-import ctypes
 import pathlib
 import re
 import subprocess
@@ -50,13 +50,16 @@ def write_variant(source: pathlib.Path, edits, out: pathlib.Path) -> pathlib.Pat
 def build(source: pathlib.Path, variants: dict, out: pathlib.Path) -> dict:
     """One nvcc per variant of ``source``, all started together, each in its
     own directory under ``out`` (the headers it does not edit are found
-    beside the source); returns name → (library, registers, spill stores),
-    the last two per instantiation in nvcc's order."""
+    beside the source); returns name → (library path, registers, spill
+    stores), the last two per instantiation in nvcc's order.  Every build
+    includes ``csrc/ffi.cuh`` first, so a parent's body from before that
+    header also exports ``ffi_error_string``."""
     procs = {}
     for name, edits in variants.items():
         src = write_variant(source, edits, out / name)
         procs[name] = subprocess.Popen(
-            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(source.parent), "-Xptxas", "-v",
+            [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(source.parent),
+             "--pre-include", str(_build.CSRC / "ffi.cuh"), "-Xptxas", "-v",
              "-o", str(src.with_suffix(".so")), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = {}
@@ -64,7 +67,7 @@ def build(source: pathlib.Path, variants: dict, out: pathlib.Path) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        built[name] = (ctypes.CDLL(str((out / name / source.name).with_suffix(".so"))),
+        built[name] = ((out / name / source.name).with_suffix(".so"),
                        re.findall(r"Used (\d+) registers", log),
                        re.findall(r"(\d+) bytes spill stores", log))
     return built

@@ -39,6 +39,7 @@
 #include <type_traits>
 
 #include "detect.cuh"
+#include "ffi.cuh"
 
 namespace {
 
@@ -101,7 +102,7 @@ cudaError_t launch_detect(const DetectParams& p, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t attributes(int search, int stride, int decimated, int* out) {
-  return detect::occupancy(detect_kernel<T>, detect::THREADS,
+  return ffi::occupancy(detect_kernel<T>, detect::THREADS,
                            detect::smem_bytes<T>(search, stride, decimated), out);
 }
 
@@ -295,7 +296,7 @@ extern "C" int place_launch(const void* const* ptrs, int n_ptrs, int sig_type, i
 extern "C" int place_attributes(int sig_type, int noise_type, int ns, int batch, int* out) {
   const PlacePlan plan = place_plan(sig_type, noise_type, ns, batch, true);
   if (plan.kernel == nullptr || ns <= 0 || batch <= 0) return cudaErrorInvalidValue;
-  const cudaError_t err = detect::occupancy(plan.kernel, PLACE_THREADS, plan.smem, out);
+  const cudaError_t err = ffi::occupancy(plan.kernel, PLACE_THREADS, plan.smem, out);
   out[4] = plan.smem ? 1 << plan.strip_log2 : 0;
   return err;
 }
@@ -312,8 +313,4 @@ extern "C" int detect_attributes(int storage, int search, int stride, int decima
     case STORE_I8: return attributes<int8_t>(search, stride, decimated, out);
   }
   return cudaErrorInvalidValue;
-}
-
-extern "C" const char* detect_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

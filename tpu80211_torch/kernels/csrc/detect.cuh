@@ -498,25 +498,6 @@ __device__ Result run(const Config& c, Smem& s, long long f, bool live, int lane
   return Result{det ? 1 : 0, det ? coarse : -1, det ? start : -1, peak};
 }
 
-// A kernel's registers and local (spill) bytes a thread, shared bytes a
-// block (static, plus `smem` dynamic) and resident blocks of `threads` per
-// SM on the current card, into out[0..3].
-template <typename Kernel>
-cudaError_t occupancy(Kernel kernel, int threads, size_t smem, int* out) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
-  out[3] = blocks;
-  return err;
-}
-
 // The row the aligned frame starts at: start, or 0 when undetected, clipped
 // to [0, ns - 1360].
 __device__ __forceinline__ int frame_row(const Result& r, int ns) {

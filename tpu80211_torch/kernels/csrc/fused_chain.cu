@@ -30,6 +30,7 @@
 // DFT (~2.2e5 FMAs per frame).
 
 #include "chain.cuh"
+#include "ffi.cuh"
 
 #include <cstdint>
 
@@ -90,19 +91,8 @@ cudaError_t launch(const Params& p, bool sync, bool evm, cudaStream_t stream) {
 
 template <typename T, bool TX_CONST, bool SYNC, bool EVM, bool SHARED_ROWS>
 cudaError_t occupancy_one(int* out) {
-  auto kernel = fused_chain_kernel<T, TX_CONST, SYNC, EVM, SHARED_ROWS>;
-  constexpr int smem = static_cast<int>(sizeof(chain::SmemFor<T, TX_CONST>));
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, chain::THREADS, smem);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(attr.sharedSizeBytes) + smem;
-  out[3] = blocks;
-  return err;
+  return ffi::occupancy(fused_chain_kernel<T, TX_CONST, SYNC, EVM, SHARED_ROWS>, chain::THREADS,
+                        sizeof(chain::SmemFor<T, TX_CONST>), out);
 }
 
 template <typename T, bool TX_CONST, bool SYNC, bool EVM>
@@ -190,8 +180,4 @@ extern "C" int fused_chain_attributes(int storage, int tx_const, int sync, int e
     }
   }
   return cudaErrorInvalidValue;
-}
-
-extern "C" const char* fused_chain_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

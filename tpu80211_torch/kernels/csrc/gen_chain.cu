@@ -57,6 +57,7 @@
 // takes the shared memory above 48 KB, so it is dynamic.
 
 #include "chain.cuh"
+#include "ffi.cuh"
 #include "gen.cuh"
 
 namespace {
@@ -387,18 +388,7 @@ cudaError_t launch(const GenParams& p, cudaStream_t stream) {
 
 template <typename EqT>
 cudaError_t attributes(int* out) {
-  cudaError_t err = cudaFuncSetAttribute(gen_chain_kernel<EqT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, gen_chain_kernel<EqT>);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gen_chain_kernel<EqT>, THREADS, SMEM);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(attr.sharedSizeBytes + SMEM);
-  out[3] = blocks;
-  return err;
+  return ffi::occupancy(gen_chain_kernel<EqT>, THREADS, SMEM, out);
 }
 
 // gen::normal_pair's terms for word pairs (a[i], b[i]): the radius, the
@@ -453,8 +443,9 @@ extern "C" int gen_chain_launch(const void* const* ptrs, int n_ptrs, int batch, 
 
 // The Box-Muller terms of n word pairs: ptrs = a, b (uint32), then r, sin,
 // cos (f64) and the normals (n float2).  Returns cudaGetLastError().
-extern "C" int gen_normals_launch(const void* const* ptrs, long long n, void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
+extern "C" int gen_normals_launch(const void* const* ptrs, int n_ptrs, long long n,
+                                  void* stream) {
+  if (n_ptrs != 6 || n <= 0) return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>((n + THREADS - 1) / THREADS);
   normals_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(ptrs[0]), static_cast<const uint32_t*>(ptrs[1]),
@@ -470,8 +461,4 @@ extern "C" int gen_normals_launch(const void* const* ptrs, long long n, void* st
 // block, resident blocks per SM.
 extern "C" int gen_chain_attributes(int eq_bf16, int* out) {
   return eq_bf16 ? attributes<__nv_bfloat16>(out) : attributes<float>(out);
-}
-
-extern "C" const char* gen_chain_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -63,6 +63,8 @@
 
 #include <cuda_runtime.h>
 
+#include "ffi.cuh"
+
 namespace {
 
 constexpr int N = 53;          // system size; column N holds the right-hand side
@@ -316,30 +318,22 @@ cudaError_t launch(const void* mat, const void* rhs, const void* ow2, void* z, i
 
 template <bool FUSED, bool CHOL>
 cudaError_t attributes(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, mmse_solve_kernel<FUSED, CHOL>);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mmse_solve_kernel<FUSED, CHOL>,
-                                                      THREADS, 0);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = static_cast<int>(attr.sharedSizeBytes);
-  out[3] = blocks;
-  return err;
+  return ffi::occupancy(mmse_solve_kernel<FUSED, CHOL>, THREADS, 0, out);
 }
 
 }  // namespace
 
-// One launch solves `batch` systems.  ow2 non-null selects the fused
-// kernel (mat = u, (batch, 53)); ow2 null the dense one (mat = the systems,
-// (batch, 53, 53)).  method: 0 gauss, 1 chol.  Returns cudaGetLastError()
-// after the launch.
-extern "C" int mmse_solve_launch(const void* mat, const void* rhs, const void* ow2, void* z,
-                                 int batch, int method, void* stream) {
-  if (batch <= 0 || mat == nullptr || rhs == nullptr || z == nullptr ||
-      (method != 0 && method != 1))
+// One launch solves `batch` systems.  ptrs: mat, rhs, ow2, z.  ow2
+// non-null selects the fused kernel (mat = u, (batch, 53)); ow2 null the
+// dense one (mat = the systems, (batch, 53, 53)).  method: 0 gauss, 1 chol.
+// Returns cudaGetLastError() after the launch.
+extern "C" int mmse_solve_launch(const void* const* ptrs, int n_ptrs, int batch, int method,
+                                 void* stream) {
+  if (n_ptrs != 4 || batch <= 0 || ptrs[0] == nullptr || ptrs[1] == nullptr ||
+      ptrs[3] == nullptr || (method != 0 && method != 1))
     return cudaErrorInvalidValue;
+  const void *mat = ptrs[0], *rhs = ptrs[1], *ow2 = ptrs[2];
+  void* z = const_cast<void*>(ptrs[3]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ow2 != nullptr)
     return method ? launch<true, true>(mat, rhs, ow2, z, batch, st)
@@ -355,8 +349,4 @@ extern "C" int mmse_solve_attributes(int fused, int method, int* out) {
   if (out == nullptr || (method != 0 && method != 1)) return cudaErrorInvalidValue;
   if (fused) return method ? attributes<true, true>(out) : attributes<true, false>(out);
   return method ? attributes<false, true>(out) : attributes<false, false>(out);
-}
-
-extern "C" const char* mmse_solve_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

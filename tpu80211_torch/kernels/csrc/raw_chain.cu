@@ -26,6 +26,7 @@
 
 #include "chain.cuh"
 #include "detect.cuh"
+#include "ffi.cuh"
 
 static_assert(chain::FRAMES == detect::LANES && chain::GROUPS == detect::WARPS,
               "the chain and the detector share one block layout");
@@ -94,10 +95,10 @@ template <typename T>
 cudaError_t attributes(bool sync, bool evm, int search, int stride, int decimated, int* out) {
   constexpr int n = chain::THREADS;
   const size_t smem = smem_of<T>(search, stride, decimated);
-  if (sync) return evm ? detect::occupancy(raw_chain_kernel<T, true, true>, n, smem, out)
-                       : detect::occupancy(raw_chain_kernel<T, true, false>, n, smem, out);
-  return evm ? detect::occupancy(raw_chain_kernel<T, false, true>, n, smem, out)
-             : detect::occupancy(raw_chain_kernel<T, false, false>, n, smem, out);
+  if (sync) return evm ? ffi::occupancy(raw_chain_kernel<T, true, true>, n, smem, out)
+                       : ffi::occupancy(raw_chain_kernel<T, true, false>, n, smem, out);
+  return evm ? ffi::occupancy(raw_chain_kernel<T, false, true>, n, smem, out)
+             : ffi::occupancy(raw_chain_kernel<T, false, false>, n, smem, out);
 }
 
 }  // namespace
@@ -167,8 +168,4 @@ extern "C" int raw_chain_attributes(int storage, int sync, int stream_sums, int 
     case chain::STORE_I8: return attributes<int8_t>(sy, evm, search, stride, decimated, out);
   }
   return cudaErrorInvalidValue;
-}
-
-extern "C" const char* raw_chain_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -57,6 +57,7 @@
 
 #include "chain.cuh"
 #include "detect.cuh"
+#include "ffi.cuh"
 #include "gen.cuh"
 
 #include <cstddef>
@@ -350,7 +351,7 @@ cudaError_t launch(const RawGenParams& p, cudaStream_t stream) {
 
 template <bool SYNC>
 cudaError_t attributes(int search, int stride, int* out) {
-  return detect::occupancy(raw_gen_kernel<SYNC>, THREADS, smem_of(search, stride), out);
+  return ffi::occupancy(raw_gen_kernel<SYNC>, THREADS, smem_of(search, stride), out);
 }
 
 }  // namespace
@@ -426,8 +427,4 @@ extern "C" int raw_gen_launch(const void* const* ptrs, int n_ptrs, int batch, in
 extern "C" int raw_gen_attributes(int sync, int search, int stride, int* out) {
   if (search < 1 || stride < 1 || detect::LAG % stride != 0) return cudaErrorInvalidValue;
   return sync ? attributes<true>(search, stride, out) : attributes<false>(search, stride, out);
-}
-
-extern "C" const char* raw_gen_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

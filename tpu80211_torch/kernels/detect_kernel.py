@@ -21,16 +21,14 @@ Unlike the TPU kernel, B need not be a multiple of 128.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
 from tpu80211_torch import constants as C
 from tpu80211_torch.cplx import Cplx
-from tpu80211_torch.kernels import _build, require_cuda
-from tpu80211_torch.kernels.fused_chain import pointer_table, raise_on_error
+from tpu80211_torch.kernels import _ffi
+from tpu80211_torch.kernels._ffi import DOUBLE, INT, INT_PTR, PTR, STORAGE
 from tpu80211_torch.ops.detect import DEFAULT_THRESHOLD, LAG, WIN
 from tpu80211_torch.utils import spans
 
@@ -38,10 +36,15 @@ FRAME = C.PREAMBLE_SAMPLES + C.PACKET_SAMPLES  # 1360 rows cut per stream
 MIN_NS = -(-FRAME // LAG) * LAG                # 1408: the least multiple of 64 that holds a frame
 MF_CHUNK = 2 * LAG                             # matched-filter rows per band product
 MAX_SEARCH = 512  # the matched filter's window must fit one block's shared memory
-STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+PLACE_STORAGE = (torch.float32, torch.bfloat16)
 _count_detect = spans.counter("launch.detect")
 _count_place = spans.counter("launch.place")
-_count_torch = spans.counter("launch.torch")
+LIB = _ffi.Library("detect", {
+    "detect_launch": (PTR, INT, INT, INT, INT, DOUBLE, INT, INT, INT, INT, PTR),
+    "place_launch": (PTR, INT, INT, INT, INT, INT, PTR),
+    "detect_attributes": (INT, INT, INT, INT, INT_PTR),
+    "place_attributes": (INT, INT, INT, INT, INT_PTR),
+})
 
 
 class Detection(NamedTuple):
@@ -90,28 +93,33 @@ def check_length(ns: int) -> None:
                          f"(at least {MIN_NS}), got {ns}")
 
 
+def _check_pair(name: str, x: Cplx, dtypes, like: torch.Tensor | None = None) -> None:
+    """Raise unless ``x`` is two (NS, B) planes of one dtype of ``dtypes``,
+    contiguous, with the shape and device of ``like`` (default: ``x.re``)."""
+    like = x.re if like is None else like
+    _ffi.check_planes(name, x, like.shape, dtypes, like.device)
+    if x.im.dtype != x.re.dtype:
+        raise TypeError(f"{name}: want one dtype, got {x.re.dtype} and {x.im.dtype}")
+    if x.re.dim() != 2:
+        raise ValueError(f"{name}: want (NS, B) planes, got {tuple(x.re.shape)}")
+
+
+def check_lts_ref(lts_ref: Cplx, device: torch.device) -> None:
+    """Raise unless ``lts_ref`` is the (64,) float32 LTS, contiguous on
+    ``device``."""
+    _ffi.check_planes("lts_ref", lts_ref, (LAG,), torch.float32, device)
+
+
 def check_streams(x: Cplx, lts_ref: Cplx, search: int) -> None:
     """Raise on streams or taps the kernels do not take."""
-    if x.re.dtype not in STORAGE or x.im.dtype != x.re.dtype:
-        raise TypeError(f"stream storage must be float32, bfloat16 or int8, got "
-                        f"{x.re.dtype}/{x.im.dtype}")
-    if x.re.dim() != 2 or x.re.shape != x.im.shape:
-        raise ValueError(f"streams must be two (NS, B) planes, got {tuple(x.re.shape)} "
-                         f"and {tuple(x.im.shape)}")
+    _check_pair("streams", x, STORAGE)
     ns, b = x.re.shape
     if b < 1:
         raise ValueError("empty batch")
     check_length(ns)
     if not 1 <= search <= MAX_SEARCH:
         raise ValueError(f"search must be in [1, {MAX_SEARCH}], got {search}")
-    for t in (*x, *lts_ref):
-        if t.device != x.re.device:
-            raise ValueError(f"a tensor lies on {t.device}, the streams on {x.re.device}")
-        if not t.is_contiguous():
-            raise ValueError("streams and taps must be contiguous")
-    for t in lts_ref:
-        if tuple(t.shape) != (LAG,) or t.dtype != torch.float32:
-            raise ValueError(f"lts_ref: want ({LAG},) float32, got {tuple(t.shape)} {t.dtype}")
+    check_lts_ref(lts_ref, x.re.device)
 
 
 # -- the plain versions -----------------------------------------------------------
@@ -212,18 +220,13 @@ def place_plain(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> Cplx:
 
 
 def _check_place(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> None:
-    if sig.re.dtype not in (torch.float32, torch.bfloat16) or sig.im.dtype != sig.re.dtype:
-        raise TypeError(f"sig must be float32 or bfloat16, got {sig.re.dtype}")
-    if noise.re.dtype not in (torch.float32, torch.bfloat16) or noise.im.dtype != noise.re.dtype:
-        raise TypeError(f"noise must be float32 or bfloat16, got {noise.re.dtype}")
-    if sig.re.dim() != 2 or any(t.shape != sig.re.shape for t in (*sig, *noise)):
-        raise ValueError("sig and noise must be (NS, B) planes of one shape")
+    _check_pair("sig", sig, PLACE_STORAGE)
+    _check_pair("noise", noise, PLACE_STORAGE, sig.re)
     ns, b = sig.re.shape
     if tuple(offs.shape) != (b,) or offs.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"offs: want ({b},) int32, got {tuple(offs.shape)} {offs.dtype}")
-    for t in (*sig, *noise, offs):
-        if t.device != sig.re.device:
-            raise ValueError(f"a tensor lies on {t.device}, sig on {sig.re.device}")
+    if offs.device != sig.re.device:
+        raise ValueError(f"offs lies on {offs.device}, sig on {sig.re.device}")
     inside = ((offs >= 0) & (offs < ns)).all()
     if offs.device.type == "cpu":
         if not bool(inside):
@@ -237,58 +240,23 @@ def _check_place(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> None:
 # -- the kernels --------------------------------------------------------------------
 
 
-def bind(lib):
-    """A library built from csrc/detect.cu (or from a variant of it), with
-    the ctypes signatures of its launch functions set."""
-    lib.detect_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.detect_launch.restype = ctypes.c_int
-    lib.place_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.place_launch.restype = ctypes.c_int
-    lib.place_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-    lib.place_attributes.restype = ctypes.c_int
-    lib.detect_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-    lib.detect_attributes.restype = ctypes.c_int
-    lib.detect_error_string.argtypes = [ctypes.c_int]
-    lib.detect_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    return bind(_build.load("detect"))
-
-
 def place_attributes(sig_dtype: torch.dtype, noise_dtype: torch.dtype, ns: int,
                      batch: int) -> dict:
-    """The placement kernel that ``place_streams`` launches for these types
-    and shapes, on the current card: registers and local (spill) bytes a
-    thread, shared bytes a block, resident blocks per SM, and streams per
-    strip (0: too long a stream to stage, sig read in place)."""
-    lib = _lib()
-    out = (ctypes.c_int * 5)()
-    raise_on_error(lib.place_attributes(STORAGE[sig_dtype], STORAGE[noise_dtype], ns, batch, out),
-                   "place", lib.detect_error_string)
-    return dict(zip((*ATTRIBUTES, "strip"), out))
-
-
-ATTRIBUTES = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm")
+    """`_ffi.attributes` of the placement kernel that ``place_streams``
+    launches for these types and shapes, and streams per ``strip`` (0: too
+    long a stream to stage, sig read in place)."""
+    return _ffi.attributes(LIB.place_attributes, STORAGE[sig_dtype], STORAGE[noise_dtype], ns,
+                           batch, names=(*_ffi.ATTRIBUTES, "strip"))
 
 
 def detect_attributes(dtype: torch.dtype = torch.bfloat16, search: int = 192,
                       decimate=16, lib=None) -> dict:
-    """The detection kernel for streams of ``dtype`` (with or without
-    alignment), on the current card: registers and local (spill) bytes a
-    thread, shared bytes a block, and resident blocks per SM (32 streams a
-    block).  ``lib``: `bind` of another build of the source."""
-    lib = lib or _lib()
+    """`_ffi.attributes` of the detection kernel for streams of ``dtype``,
+    with or without alignment (32 streams a block).  ``lib``: a card probe's
+    build (`Library.at`)."""
     stride, decimated = stride_of(decimate)
-    out = (ctypes.c_int * 4)()
-    raise_on_error(lib.detect_attributes(STORAGE[dtype], search, stride, decimated, out),
-                   "detect", lib.detect_error_string)
-    return dict(zip(ATTRIBUTES, out))
+    return _ffi.attributes((lib or LIB).detect_attributes, STORAGE[dtype], search, stride,
+                           decimated)
 
 
 def detection_rows(b: int, device: torch.device) -> list:
@@ -300,12 +268,9 @@ def detection_rows(b: int, device: torch.device) -> list:
 
 def _launch_detect(x: Cplx, lts_ref: Cplx, threshold, search, advance, decimate,
                    align: bool, lib=None):
-    """One launch; ``lib`` = `bind` of another build of the source (the card
-    probe's variants), else the package's own."""
+    """One launch; ``lib``: a card probe's build of the source (`Library.at`)."""
     check_streams(x, lts_ref, search)
-    require_cuda(x.re)
     stride, decimated = stride_of(decimate)
-    lib = lib or _lib()
     ns, b = x.re.shape
     dev = x.re.device
     rows = detection_rows(b, dev)
@@ -313,15 +278,11 @@ def _launch_detect(x: Cplx, lts_ref: Cplx, threshold, search, advance, decimate,
     if align:
         planes = [torch.empty((n, b), dtype=x.re.dtype, device=dev)
                   for n in (C.PREAMBLE_SAMPLES,) * 2 + (C.PACKET_SAMPLES,) * 2]
-    ptrs = pointer_table([*x, *lts_ref, *rows, *planes])
-    with torch.cuda.device(dev):
-        err = lib.detect_launch(ptrs, len(ptrs), STORAGE[x.re.dtype], b, ns, float(threshold),
-                                int(search), int(advance), stride, decimated,
-                                torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "detect", lib.detect_error_string)
-    _count_detect()
+    _ffi.launch((lib or LIB).detect_launch, [*x, *lts_ref, *rows, *planes], STORAGE[x.re.dtype],
+                b, ns, float(threshold), int(search), int(advance), stride, decimated,
+                counter=_count_detect)
     det, coarse, start, metric = rows
-    _count_torch()   # det != 0: one elementwise kernel
+    _ffi.count_torch()   # det != 0: one elementwise kernel
     res = Detection(det != 0, coarse, start, metric)
     if not align:
         return res
@@ -371,22 +332,11 @@ def place_streams(sig: Cplx, noise: Cplx, offs: torch.Tensor) -> Cplx:
 
 
 def _launch_place(sig: Cplx, noise: Cplx, offs: torch.Tensor, lib=None) -> Cplx:
-    """One launch; ``lib`` = `bind` of another build of the source (the card
-    probe's variants), else the package's own."""
+    """One launch; ``lib``: a card probe's build of the source (`Library.at`)."""
     _check_place(sig, noise, offs)
-    require_cuda(sig.re)
-    for t in (*sig, *noise):
-        if not t.is_contiguous():
-            raise ValueError("sig and noise must be contiguous")
-    lib = lib or _lib()
     ns, b = sig.re.shape
-    dev = sig.re.device
     out = Cplx(torch.empty_like(sig.re), torch.empty_like(sig.im))
     offs = offs.to(torch.int32).contiguous()
-    ptrs = pointer_table([*sig, *noise, offs, *out])
-    with torch.cuda.device(dev):
-        err = lib.place_launch(ptrs, len(ptrs), STORAGE[sig.re.dtype], STORAGE[noise.re.dtype],
-                               ns, b, torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "place", lib.detect_error_string)
-    _count_place()
+    _ffi.launch((lib or LIB).place_launch, [*sig, *noise, offs, *out], STORAGE[sig.re.dtype],
+                STORAGE[noise.re.dtype], ns, b, counter=_count_place)
     return out

@@ -176,8 +176,8 @@ def main(argv: list[str]) -> int:
                 print(f"{tag} {name}: registers {regs}, spill stores {spills} "
                       "(instantiations in nvcc's order)")
         want = None
-        for name, (lib, _, _) in built["detect"].items():
-            lib = D.bind(lib)
+        for name, (path, _, _) in built["detect"].items():
+            lib = D.LIB.at(path)
             run = lambda: D._launch_detect(x, lts, D.DEFAULT_THRESHOLD, 192, 4, 16,  # noqa: E731
                                            False, lib=lib)
             got = run()
@@ -187,10 +187,10 @@ def main(argv: list[str]) -> int:
                   f"{int(got.detected.sum())} of {B}, starts {'==' if same else '!='} as_is; "
                   f"{D.detect_attributes(torch.bfloat16, lib=lib)}", flush=True)
         want = None
-        for name, (lib, _, _) in built["raw_chain"].items():
-            kernel = R.bind(lib)
+        for name, (path, _, _) in built["raw_chain"].items():
+            lib = R.LIB.at(path)
             run = lambda: R._launch(x, lts, *txc, None, 192, 4, 0.0, False, False,  # noqa: E731
-                                    None, None, 1.0, True, "h_mmse", 16, kernel=kernel)
+                                    None, None, 1.0, True, "h_mmse", 16, lib=lib)
             got = run()
             want = want or got
             same = torch.equal(got["start"], want["start"])

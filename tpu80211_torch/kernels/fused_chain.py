@@ -19,7 +19,6 @@ the ragged tail itself.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -29,7 +28,8 @@ import torch
 
 from tpu80211_torch import constants as C
 from tpu80211_torch.cplx import Cplx
-from tpu80211_torch.kernels import _build, require_cuda
+from tpu80211_torch.kernels import _ffi
+from tpu80211_torch.kernels._ffi import FLOAT, INT, INT_PTR, PTR, STORAGE
 from tpu80211_torch.ops import specmats
 from tpu80211_torch.ops.interp import interp_matrix
 from tpu80211_torch.utils import spans
@@ -41,9 +41,12 @@ OUT_NAMES = ("h_lt", "h_linear", "h_cubic", "h_sinc", "h_spline",
 # diagnostic planes that serving mode does not write (their keys are None)
 SERVE_DROP = ("h_lt", "h_linear", "h_cubic", "h_sinc", "h_spline")
 EQUALIZE_WITH = ("h_linear", "h_wiener", "h_mmse")
-_STORAGE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _count_call = spans.counter("call.fused_rx_chain_txconst")
 _count_launch = spans.counter("launch.fused_chain")
+LIB = _ffi.Library("fused_chain", {
+    "fused_chain_launch": (PTR, INT, INT, INT, INT, INT, FLOAT, FLOAT, INT, INT, PTR),
+    "fused_chain_attributes": (INT, INT, INT, INT, INT, INT_PTR),
+})
 
 
 class ChainConsts(NamedTuple):
@@ -135,41 +138,40 @@ def quantize_i8(x: Cplx, lsb=None) -> tuple[Cplx, torch.Tensor]:
 # -- validation ----------------------------------------------------------------
 
 
-def _check(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
-           consts: ChainConsts, equalize_with: str) -> None:
+def check_equalize_with(equalize_with: str) -> None:
     if equalize_with not in EQUALIZE_WITH:
         raise ValueError(f"equalize_with must be one of {EQUALIZE_WITH}, "
                          f"got {equalize_with!r}")
+
+
+def check_tx_spectra(txs: Cplx, tpre: Cplx, device: torch.device) -> None:
+    """Raise unless ``txs`` (53, 16) and ``tpre`` (53, 1) are `tx_spectra`'s
+    float32 planes, contiguous on ``device``."""
+    _ffi.check_planes("txs", txs, (C.N_SC, NB_PAD), torch.float32, device)
+    _ffi.check_planes("tpre", tpre, (C.N_SC, 1), torch.float32, device)
+
+
+def _check(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
+           consts: ChainConsts, equalize_with: str) -> None:
+    check_equalize_with(equalize_with)
     dtype, dev = rx_pkt.re.dtype, rx_pkt.re.device
-    if dtype not in _STORAGE:
+    if dtype not in STORAGE:
         raise TypeError(f"sample storage must be float32, bfloat16 or int8, got {dtype}")
     b = rx_pkt.re.shape[-1]
     if b < 1:
         raise ValueError("empty batch")
-
-    def planes(name, c, shape, want_dtype):
-        for t in c:
-            if tuple(t.shape) != shape or t.dtype != want_dtype:
-                raise ValueError(f"{name}: want {shape} {want_dtype}, "
-                                 f"got {tuple(t.shape)} {t.dtype}")
-            if t.device != dev:
-                raise ValueError(f"{name} lies on {t.device}, rx on {dev}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-
-    planes("rx_pkt", rx_pkt, (C.PACKET_SAMPLES, b), dtype)
-    planes("rx_lp", rx_lp, (C.PREAMBLE_SAMPLES, b), dtype)
+    _ffi.check_planes("rx_pkt", rx_pkt, (C.PACKET_SAMPLES, b), dtype, dev)
+    _ffi.check_planes("rx_lp", rx_lp, (C.PREAMBLE_SAMPLES, b), dtype, dev)
     if isinstance(tx, TxConst):
-        planes("txs", tx.txs, (C.N_SC, NB_PAD), torch.float32)
-        planes("tpre", tx.tpre, (C.N_SC, 1), torch.float32)
+        check_tx_spectra(*tx, dev)
     else:
         if dtype == torch.int8:
             raise TypeError("int8 ingestion is a tx-constant mode only")
-        planes("tx_pkt", tx.pkt, (C.PACKET_SAMPLES, b), dtype)
-        planes("tx_lp", tx.lp, (C.PREAMBLE_SAMPLES, b), dtype)
-    planes("consts.w", consts[:2], (C.N_FFT, C.N_SC), torch.float32)
-    planes("consts.win", consts[2:], (len(INTERP_KINDS), C.N_SC, C.N_PILOTS),
-           torch.float32)
+        _ffi.check_planes("tx_pkt", tx.pkt, (C.PACKET_SAMPLES, b), dtype, dev)
+        _ffi.check_planes("tx_lp", tx.lp, (C.PREAMBLE_SAMPLES, b), dtype, dev)
+    _ffi.check_planes("consts.w", consts[:2], (C.N_FFT, C.N_SC), torch.float32, dev)
+    _ffi.check_planes("consts.win", consts[2:], (len(INTERP_KINDS), C.N_SC, C.N_PILOTS),
+                      torch.float32, dev)
 
 
 # -- the kernel and its plain version -----------------------------------------
@@ -200,7 +202,6 @@ def fused_chain(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
     spans.phase("check")
     _check(rx_pkt, rx_lp, tx, consts, equalize_with)
     spans.phase()
-    require_cuda(rx_pkt.re)
     return _launch(rx_pkt, rx_lp, tx, consts, float(eps), float(lsb), serve,
                    equalize_with, sync, evm_sums)
 
@@ -228,65 +229,22 @@ def chain_outputs(b: int, device: torch.device, eq_dtype: torch.dtype, serve: bo
     return out, tensors
 
 
-def pointer_table(tensors: list):
-    """A ctypes array of the tensors' device pointers (None → null)."""
-    return (ctypes.c_void_p * len(tensors))(
-        *(None if t is None else t.data_ptr() for t in tensors))
-
-
-def raise_on_error(err: int, what: str, err_string) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
-                           f"({err_string(err).decode()})")
-
-
-def bind(lib):
-    """(launch, error string) of a library built from csrc/fused_chain.cu
-    (or from a variant of it), with the ctypes signatures of its functions
-    set."""
-    fn = lib.fused_chain_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err_string = lib.fused_chain_error_string
-    err_string.argtypes = [ctypes.c_int]
-    err_string.restype = ctypes.c_char_p
-    return fn, err_string
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    return bind(_build.load("fused_chain"))
-
-
 def kernel_attributes(storage: torch.dtype = torch.bfloat16, tx_const: bool = True,
                       sync: bool = False, evm_sums: bool = False, aligned: bool = True,
                       lib=None) -> dict:
-    """The kernel that `fused_chain` launches for samples of ``storage`` in
-    this mode, on the current card, where B is a multiple of 8 and the
-    packet planes are 16-byte aligned (``aligned``: bf16 and int8 windows
-    move in runs of 8 frames, by cp.async for bf16 without sync) or not:
-    registers and local (spill) bytes a thread, shared bytes a block, and
-    resident blocks per SM (32 frames a block).  ``lib``: another build of
-    the source."""
-    lib = lib or _build.load("fused_chain")
-    _, err_string = bind(lib)
-    fn = lib.fused_chain_attributes
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
-    raise_on_error(fn(_STORAGE[storage], int(tx_const), int(sync), int(evm_sums), int(aligned),
-                      out), "fused_chain", err_string)
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
+    """`_ffi.attributes` of the kernel that `fused_chain` launches for
+    samples of ``storage`` in this mode (32 frames a block), where B is a
+    multiple of 8 and the packet planes are 16-byte aligned (``aligned``:
+    bf16 and int8 windows move in runs of 8 frames, by cp.async for bf16
+    without sync) or not.  ``lib``: a card probe's build (`Library.at`)."""
+    return _ffi.attributes((lib or LIB).fused_chain_attributes, STORAGE[storage], tx_const,
+                           sync, evm_sums, aligned)
 
 
 def _launch(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
             consts: ChainConsts, eps: float, lsb: float, serve: bool,
-            equalize_with: str, sync: bool, evm_sums: bool, kernel=None) -> dict:
-    """One launch; ``kernel`` = `bind` of another build of the source (the
-    card probe's variants), else the package's own."""
-    fn, err_string = kernel or _kernel_fn()
+            equalize_with: str, sync: bool, evm_sums: bool, lib=None) -> dict:
+    """One launch; ``lib``: a card probe's build of the source (`Library.at`)."""
     dev = rx_pkt.re.device
     b = rx_pkt.re.shape[-1]
     storage = rx_pkt.re.dtype
@@ -295,14 +253,10 @@ def _launch(rx_pkt: Cplx, rx_lp: Cplx, tx: TxConst | TxFrames,
     spans.phase("outputs")
     out, outs = chain_outputs(b, dev, eq_dtype, serve, True, evm_sums)
     spans.phase("launch")
-    ptrs = pointer_table([*rx_pkt, *rx_lp, *tx_a, *tx_b, *consts, *outs])
-    with torch.cuda.device(dev):
-        err = fn(ptrs, len(ptrs), _STORAGE[storage], isinstance(tx, TxConst),
-                 EQUALIZE_WITH.index(equalize_with), b, eps, lsb, sync, evm_sums,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "fused_chain", err_string)
+    _ffi.launch((lib or LIB).fused_chain_launch, [*rx_pkt, *rx_lp, *tx_a, *tx_b, *consts, *outs],
+                STORAGE[storage], isinstance(tx, TxConst), EQUALIZE_WITH.index(equalize_with), b,
+                eps, lsb, sync, evm_sums, counter=_count_launch)
     spans.phase()
-    _count_launch()
     return out
 
 

@@ -66,7 +66,6 @@ builds go to a temporary directory.
 
 from __future__ import annotations
 
-import ctypes
 import pathlib
 import sys
 import tempfile
@@ -76,7 +75,7 @@ import torch
 
 from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.datasets.loader import load_capture
-from tpu80211_torch.kernels import _build, _variants
+from tpu80211_torch.kernels import _build, _ffi, _variants
 from tpu80211_torch.kernels import detect_variants as DV
 from tpu80211_torch.kernels import fused_chain as F
 from tpu80211_torch.kernels import raw_chain as R
@@ -170,6 +169,8 @@ TREE_DIAGNOSTICS = {
         "  if (threadIdx.x < 2) atomicAdd(&library_calls[threadIdx.x], block_calls[threadIdx.x]);\\n ;; "
         f"}}  // namespace chain\\n -> }}  // namespace chain\\n\\n{_READ_COUNTERS}"),
 }
+# count_fallbacks' reader (unsigned long long out[2]), an export it adds
+COUNTERS_EXPORT = {"chain_library_calls": (_ffi.PTR,)}
 # derotated samples a frame: the two LTS repeats, then 19 windows of 64
 DEROTATED = 2 * 64 + 19 * 64
 # the variants built into raw_chain.cu as well
@@ -221,19 +222,15 @@ def sync_attributes(lib, raw_lib) -> list[str]:
     return lines
 
 
-def library_calls(lib, err_string, run, frames: int, tag: str) -> str:
-    """One call of ``run`` on count_fallbacks' build ``lib`` (``err_string``
-    its error strings): its library sincos calls a frame and the guard's
-    fallbacks a derotated sample."""
-    read = lib.chain_library_calls
-    read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-    read.restype = ctypes.c_int
-    counts = (ctypes.c_ulonglong * 2)()
-    F.raise_on_error(read(counts), "chain_library_calls", err_string)  # zero them
+def library_calls(lib, run, frames: int, tag: str) -> str:
+    """One call of ``run`` on count_fallbacks' build ``lib``: its library
+    sincos calls a frame and the guard's fallbacks a derotated sample."""
+    counts = torch.zeros(2, dtype=torch.int64)
+    lib.chain_library_calls(counts.data_ptr())  # zero them
     run()
     torch.cuda.synchronize()
-    F.raise_on_error(read(counts), "chain_library_calls", err_string)
-    factors, fallbacks = counts
+    lib.chain_library_calls(counts.data_ptr())
+    factors, fallbacks = counts.tolist()
     return (f"{tag}: library sincos {(factors + fallbacks) / frames:.4f} a frame "
             f"({factors / frames:.4f} phase factors, {fallbacks / frames:.6f} fallbacks); "
             f"fallback share {fallbacks / (frames * DEROTATED):.3e} of {DEROTATED} derotated "
@@ -271,14 +268,15 @@ def main(argv: list[str]) -> int:
             for name, (_, regs, spills) in libs.items():
                 print(f"{tag} {kind} {name}: registers {regs}, spill stores {spills} "
                       "(instantiations in nvcc's order)")
+        libs = {name: F.LIB.at(path, **COUNTERS_EXPORT) for name, (path, _, _) in built.items()}
+        raw_libs = {name: R.LIB.at(path, **COUNTERS_EXPORT)
+                    for name, (path, _, _) in raw_built.items()}
         print("\n".join(f"{tag} as_is {line}"
-                        for line in sync_attributes(built["as_is"][0], raw_built["as_is"][0])))
-        for name, (lib, _, _) in built.items():
-            kernel = F.bind(lib)
-
-            def run(rp=pk, rl=lp, tx=txc, sync=False, kernel=kernel):
+                        for line in sync_attributes(libs["as_is"], raw_libs["as_is"])))
+        for name, lib in libs.items():
+            def run(rp=pk, rl=lp, tx=txc, sync=False, lib=lib):
                 return F._launch(rp, rl, tx, consts, 0.0, 1.0, False,
-                                 "h_mmse" if sync else "h_linear", sync, False, kernel=kernel)
+                                 "h_mmse" if sync else "h_linear", sync, False, lib=lib)
 
             ms = _variants.time_ms(run)
             ms_frames = _variants.time_ms(lambda: run(pk2, lp2, tx2))
@@ -287,14 +285,12 @@ def main(argv: list[str]) -> int:
                   f"{ms_frames:.4f} ms; B={B} sync {ms_sync:.4f} ms; "
                   f"{F.kernel_attributes(sync=True, lib=lib)}", flush=True)
             if name == "count_fallbacks":
-                print(library_calls(lib, kernel[1], lambda: run(spk, slp, sync=True), B,
+                print(library_calls(lib, lambda: run(spk, slp, sync=True), B,
                                     f"{tag} fused_chain {name}"))
-        for name, (lib, _, _) in raw_built.items():
-            kernel = R.bind(lib)
-
-            def run_raw(kernel=kernel):
+        for name, lib in raw_libs.items():
+            def run_raw(lib=lib):
                 return R._launch(x, lts, *txc, None, 192, 4, 0.0, True, False, None, None, 1.0,
-                                 False, "h_mmse", 16, kernel=kernel)
+                                 False, "h_mmse", 16, lib=lib)
 
             got = run_raw()
             print(f"{tag} raw_chain {name}: B={B_FRAMES} x {DV.NS} sync {_variants.time_ms(run_raw):.4f}"
@@ -302,7 +298,7 @@ def main(argv: list[str]) -> int:
                   f"{R.kernel_attributes(sync=True, stream_sums=False, decimate=16, lib=lib)}",
                   flush=True)
             if name == "count_fallbacks":
-                print(library_calls(lib, kernel[1], run_raw, B_FRAMES, f"{tag} raw_chain {name}"))
+                print(library_calls(lib, run_raw, B_FRAMES, f"{tag} raw_chain {name}"))
     return 0
 
 

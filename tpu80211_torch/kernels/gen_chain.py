@@ -26,7 +26,6 @@ not ported.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -35,8 +34,9 @@ import torch
 
 from tpu80211_torch import constants as C
 from tpu80211_torch.cplx import Cplx
-from tpu80211_torch.kernels import _build, require_cuda
+from tpu80211_torch.kernels import _ffi
 from tpu80211_torch.kernels import fused_chain as F
+from tpu80211_torch.kernels._ffi import FLOAT, INT, INT_PTR, LONG_LONG, PTR
 from tpu80211_torch.ops import channel
 from tpu80211_torch.utils import spans
 
@@ -47,7 +47,11 @@ INTERP_KINDS = F.INTERP_KINDS
 _OUT_NAMES = F.OUT_NAMES
 N_SUMS = len(_OUT_NAMES) + 1  # stream sums: 7 estimators' Σ|ĥ − h|², then Σ|h|²
 _count_launch = spans.counter("launch.gen_chain")
-_count_torch = spans.counter("launch.torch")
+LIB = _ffi.Library("gen_chain", {
+    "gen_chain_launch": (PTR, INT, INT, INT, FLOAT, INT, PTR),
+    "gen_normals_launch": (PTR, INT, LONG_LONG, PTR),
+    "gen_chain_attributes": (INT, INT_PTR),
+})
 
 # -- the counter-based generator (csrc/gen.cuh) ----------------------------------------
 
@@ -313,12 +317,7 @@ def _check(batch: int, txs: Cplx, tpre: Cplx, eq_dtype: torch.dtype) -> None:
         raise ValueError(f"batch must be a positive multiple of {LANES}, got {batch}")
     if eq_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"eq_dtype must be float32 or bfloat16, got {eq_dtype}")
-    for name, c, shape in (("txs", txs, (C.N_SC, F.NB_PAD)), ("tpre", tpre, (C.N_SC, 1))):
-        for t in c:
-            if tuple(t.shape) != shape or t.dtype != torch.float32:
-                raise ValueError(f"{name}: want {shape} float32, got {tuple(t.shape)} {t.dtype}")
-            if t.device != txs.re.device or not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous on {txs.re.device}")
+    F.check_tx_spectra(txs, tpre, txs.re.device)
 
 
 # -- the kernel ------------------------------------------------------------------------------
@@ -364,37 +363,11 @@ def wrap_i32(v):
     return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
-def bind(lib):
-    """(launch, error string) of a library built from csrc/gen_chain.cu (or
-    from a variant of it), with the ctypes signatures of its functions set."""
-    fn = lib.gen_chain_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.gen_chain_attributes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.gen_chain_attributes.restype = ctypes.c_int
-    err_string = lib.gen_chain_error_string
-    err_string.argtypes = [ctypes.c_int]
-    err_string.restype = ctypes.c_char_p
-    return fn, err_string
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    return bind(_build.load("gen_chain"))
-
-
 def kernel_attributes(eq_dtype: torch.dtype = torch.bfloat16, lib=None) -> dict:
-    """The kernel that `fused_gen_chain` launches for eq in ``eq_dtype`` (the
-    same in stream and full mode), on the current card: registers and local
-    (spill) bytes a thread, shared bytes a block, and resident blocks per SM
-    (32 frames a block).  ``lib``: another build of the source."""
-    lib = lib or _build.load("gen_chain")
-    _, err_string = bind(lib)
-    out = (ctypes.c_int * 4)()
-    F.raise_on_error(lib.gen_chain_attributes(int(eq_dtype == torch.bfloat16), out), "gen_chain",
-                     err_string)
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
+    """`_ffi.attributes` of the kernel that `fused_gen_chain` launches for eq
+    in ``eq_dtype``, the same in stream and full mode (32 frames a block).
+    ``lib``: a card probe's build (`Library.at`)."""
+    return _ffi.attributes((lib or LIB).gen_chain_attributes, eq_dtype == torch.bfloat16)
 
 
 def kernel_normals(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
@@ -404,31 +377,20 @@ def kernel_normals(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torc
     radius, the angle's sin and cos (float64) and the normals (float32), to
     hold them against `normal_pair`; the generative kernels draw their own
     words and never call this."""
-    require_cuda(a)
     if a.shape != b.shape or a.dim() != 1 or a.device != b.device:
         raise ValueError(f"want two 1-d word tensors on one device, got {a.shape}, {b.shape}")
-    _, err_string = _kernel_fn()
-    fn = _build.load("gen_chain").gen_normals_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     dev, n = a.device, a.shape[0]
     words = [wrap_i32(w).to(torch.int32).contiguous() for w in (a, b)]
     terms = [torch.empty(n, dtype=torch.float64, device=dev) for _ in range(3)]
     z = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    ptrs = F.pointer_table([*words, *terms, z])
-    with torch.cuda.device(dev):
-        err = fn(ptrs, n, torch.cuda.current_stream(dev).cuda_stream)
-    F.raise_on_error(err, "gen_chain normals", err_string)
+    _ffi.launch(LIB.gen_normals_launch, [*words, *terms, z], n)
     return (*terms, Cplx(z[:, 0], z[:, 1]))
 
 
 def _launch(seed, batch, txs, tpre, snr_db, eq_dtype, channel_model, stream_sums,
-            kernel=None) -> dict:
-    """One launch; ``kernel`` = `bind` of another build of the source (the
-    card probe's variants), else the package's own."""
+            lib=None) -> dict:
+    """One launch; ``lib``: a card probe's build of the source (`Library.at`)."""
     _check(batch, txs, tpre, eq_dtype)
-    require_cuda(txs.re)
-    fn, err_string = kernel or _kernel_fn()
     dev = txs.re.device
     seed_t = seed_tensor(seed, dev)
     cc = channel_consts(dev, channel_model)
@@ -446,14 +408,11 @@ def _launch(seed, batch, txs, tpre, snr_db, eq_dtype, channel_model, stream_sums
     per_frame = empty(N_SUMS, batch) if stream_sums else None
     outs = [t for name in (*_OUT_NAMES, "eq") for t in out[name]]
     outs += [out["ow2"], *out["h_true"], out["checksum"], per_frame]
-    ptrs = F.pointer_table([*txs, *tpre, *cc.wc, cc.tscale, consts.win_re, consts.win_im,
-                            seed_t, *outs])
-    with torch.cuda.device(dev):
-        err = fn(ptrs, len(ptrs), batch, cc.tscale.shape[0], freq_noise_scale(snr_db),
-                 eq_dtype == torch.bfloat16, torch.cuda.current_stream(dev).cuda_stream)
-    F.raise_on_error(err, "gen_chain", err_string)
-    _count_launch()
+    _ffi.launch((lib or LIB).gen_chain_launch,
+                [*txs, *tpre, *cc.wc, cc.tscale, consts.win_re, consts.win_im, seed_t, *outs],
+                batch, cc.tscale.shape[0], freq_noise_scale(snr_db), eq_dtype == torch.bfloat16,
+                counter=_count_launch)
     if stream_sums:
-        _count_torch()   # the sum over lanes: one reduction kernel
+        _ffi.count_torch()   # the sum over lanes: one reduction kernel
         out["sums"] = per_frame.view(N_SUMS, batch // LANES, LANES).sum(1)
     return out

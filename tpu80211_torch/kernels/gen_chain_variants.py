@@ -211,12 +211,11 @@ def main(argv: list[str]) -> int:
         for name, (_, regs, spills) in built.items():
             print(f"{tag} {name}: registers {regs}, spill stores {spills} "
                   "(instantiations in nvcc's order)")
-        for name, (lib, _, _) in built.items():
-            kernel = G.bind(lib)
+        for name, (path, _, _) in built.items():
+            lib = G.LIB.at(path)
 
             def run(model=None, stream=True):
-                return G._launch(SEED, B, *txc, SNR_DB, torch.bfloat16, model, stream,
-                                 kernel=kernel)
+                return G._launch(SEED, B, *txc, SNR_DB, torch.bfloat16, model, stream, lib=lib)
 
             ms = _variants.time_ms(run)
             ms16 = _variants.time_ms(lambda: run("E"))

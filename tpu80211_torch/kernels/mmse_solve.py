@@ -34,20 +34,21 @@ tensors only; a CUDA tensor launches the kernel or raises.  They are not
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from tpu80211_torch import constants as C
-from tpu80211_torch.kernels import _build, require_cuda
-from tpu80211_torch.kernels.fused_chain import raise_on_error
+from tpu80211_torch.kernels import _ffi
+from tpu80211_torch.kernels._ffi import INT, INT_PTR, PTR
 from tpu80211_torch.utils import spans
 
 N = C.N_SC
 METHODS = ("gauss", "chol")
 _count_fused = spans.counter("launch.mmse_solve")
 _count_dense = spans.counter("launch.mmse_solve_dense")
+LIB = _ffi.Library("mmse_solve", {
+    "mmse_solve_launch": (PTR, INT, INT, INT, PTR),
+    "mmse_solve_attributes": (INT, INT, INT_PTR),
+})
 
 
 def _recip(p: torch.Tensor) -> torch.Tensor:
@@ -177,35 +178,14 @@ def solve_batched(a: torch.Tensor, rhs: torch.Tensor, method: str = "gauss") -> 
     return z.to(a.dtype).reshape(rhs.shape)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    lib = _build.load("mmse_solve")
-    fn = lib.mmse_solve_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    attrs = lib.mmse_solve_attributes
-    attrs.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    attrs.restype = ctypes.c_int
-    err_string = lib.mmse_solve_error_string
-    err_string.argtypes = [ctypes.c_int]
-    err_string.restype = ctypes.c_char_p
-    return fn, attrs, err_string
-
-
 def kernel_attributes(entry: str, method: str) -> dict:
-    """The compiled kernel of one instantiation ("fused" or "dense" ×
-    ``method``) on the current card: registers and local (spill) bytes a
-    thread, static shared bytes a block, and resident blocks per SM, which
-    are systems per SM (one system a block)."""
+    """`_ffi.attributes` of one instantiation ("fused" or "dense" ×
+    ``method``): its shared bytes are static, and its blocks per SM are
+    systems per SM (one system a block)."""
     _check_method(method)
     if entry not in ("fused", "dense"):
         raise ValueError(f"entry must be 'fused' or 'dense', got {entry!r}")
-    _, attrs, err_string = _kernel_fn()
-    out = (ctypes.c_int * 4)()
-    raise_on_error(attrs(int(entry == "fused"), METHODS.index(method), out), "mmse_solve",
-                   err_string)
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
+    return _ffi.attributes(LIB.mmse_solve_attributes, entry == "fused", METHODS.index(method))
 
 
 def _require_aligned(t: torch.Tensor) -> None:
@@ -224,7 +204,6 @@ def _launch(mat: torch.Tensor, rhs: torch.Tensor, ow2: torch.Tensor | None,
     (the fused kernel) or the systems (S, 53, 53) with ``ow2`` None."""
     for t in (mat, rhs, ow2):
         if t is not None:
-            require_cuda(t)
             if t.device != mat.device:
                 raise ValueError(f"inputs on {t.device} and {mat.device}")
             _require_aligned(t)
@@ -233,12 +212,6 @@ def _launch(mat: torch.Tensor, rhs: torch.Tensor, ow2: torch.Tensor | None,
         return z
     if rhs.shape[0] > 2**31 - 1:
         raise ValueError(f"{rhs.shape[0]} systems: at most 2**31 - 1 per launch")
-    fn, _, err_string = _kernel_fn()
-    dev = mat.device
-    with torch.cuda.device(dev):
-        err = fn(mat.data_ptr(), rhs.data_ptr(), None if ow2 is None else ow2.data_ptr(),
-                 z.data_ptr(), rhs.shape[0], METHODS.index(method),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(err, "mmse_solve", err_string)
-    (_count_dense if ow2 is None else _count_fused)()
+    _ffi.launch(LIB.mmse_solve_launch, [mat, rhs, ow2, z], rhs.shape[0],
+                METHODS.index(method), counter=_count_dense if ow2 is None else _count_fused)
     return z

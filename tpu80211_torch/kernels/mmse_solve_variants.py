@@ -20,14 +20,13 @@ the builds go to a temporary directory.
 
 from __future__ import annotations
 
-import ctypes
 import pathlib
 import sys
 import tempfile
 
 import torch
 
-from tpu80211_torch.kernels import _build, _variants
+from tpu80211_torch.kernels import _build, _ffi, _variants
 from tpu80211_torch.kernels import mmse_solve as M
 
 SOURCE = _build.CSRC / "mmse_solve.cu"
@@ -58,10 +57,7 @@ def main(argv: list[str]) -> int:
     print(_variants.card())
     with tempfile.TemporaryDirectory() as tmp:
         built = _variants.build(SOURCE, variants, pathlib.Path(tmp))
-        for lib, _, _ in built.values():
-            lib.mmse_solve_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                                                      ctypes.c_void_p]
-            lib.mmse_solve_launch.restype = ctypes.c_int
+        libs = {name: M.LIB.at(path) for name, (path, _, _) in built.items()}
         for name, (_, regs, spills) in built.items():
             print(f"{name}: registers {regs}, spill stores {spills} (instantiations in nvcc's order)")
         for n in (262144, 8192):
@@ -70,17 +66,18 @@ def main(argv: list[str]) -> int:
                                    torch.randn(n, 53, generator=gen, device=dev)) for _ in range(2))
             ow2 = torch.full((n,), 0.37, device=dev)
             a, z = M.rank1_systems(u, ow2), torch.empty_like(rx)
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            for name, (lib, _, _) in built.items():
+            for name, lib in libs.items():
                 cells = []
                 for entry in ("fused", "dense"):
                     for method in M.METHODS:
                         mat, w = (u, ow2) if entry == "fused" else (a, None)
-                        args = (mat.data_ptr(), rx.data_ptr(), None if w is None else w.data_ptr(),
-                                z.data_ptr(), n, M.METHODS.index(method), stream)
-                        if lib.mmse_solve_launch(*args):
-                            raise RuntimeError(f"variant {name}: {entry} {method} did not launch")
-                        ms = _variants.time_ms(lambda: lib.mmse_solve_launch(*args))
+
+                        def run():  # raises if it does not launch
+                            _ffi.launch(lib.mmse_solve_launch, [mat, rx, w, z], n,
+                                        M.METHODS.index(method))
+
+                        run()
+                        ms = _variants.time_ms(run)
                         k = 2048
                         want = M.fused_rank1_plain(u[:k], rx[:k], ow2[:k], method)
                         err = float((z[:k] - want).abs().max() / want.abs().max())

@@ -13,33 +13,22 @@ or raises.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from tpu80211_torch import constants as C
 from tpu80211_torch.cplx import Cplx
-from tpu80211_torch.kernels import _build, require_cuda
+from tpu80211_torch.kernels import _ffi
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
+from tpu80211_torch.kernels._ffi import DOUBLE, FLOAT, INT, INT_PTR, PTR, STORAGE
 from tpu80211_torch.utils import spans
 
 _count_call = spans.counter("call.raw_rx_txconst_fused")
 _count_launch = spans.counter("launch.raw_chain")
-_count_torch = spans.counter("launch.torch")
-
-
-def _check_tx(x: Cplx, txs: Cplx, tpre: Cplx, equalize_with: str) -> None:
-    if equalize_with not in F.EQUALIZE_WITH:
-        raise ValueError(f"equalize_with must be one of {F.EQUALIZE_WITH}, "
-                         f"got {equalize_with!r}")
-    for name, c, shape in (("txs", txs, (C.N_SC, F.NB_PAD)), ("tpre", tpre, (C.N_SC, 1))):
-        for t in c:
-            if tuple(t.shape) != shape or t.dtype != torch.float32:
-                raise ValueError(f"{name}: want {shape} float32, got {tuple(t.shape)} {t.dtype}")
-            if t.device != x.re.device or not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous on {x.re.device}")
+LIB = _ffi.Library("raw_chain", {
+    "raw_chain_launch": (PTR, INT, INT, INT, INT, INT, FLOAT, FLOAT, INT, INT, DOUBLE, INT, INT,
+                         INT, INT, PTR),
+    "raw_chain_attributes": (INT, INT, INT, INT, INT, INT, INT_PTR),
+})
 
 
 def raw_chain_plain(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx,
@@ -52,7 +41,8 @@ def raw_chain_plain(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx,
     detection, the frame rows cut at each start, then the plain chain with
     the EVM sums taken from eq in float32 (``stream_sums``)."""
     thr = D.DEFAULT_THRESHOLD if threshold is None else threshold
-    _check_tx(x, txs, tpre, equalize_with)
+    F.check_equalize_with(equalize_with)
+    F.check_tx_spectra(txs, tpre, x.re.device)
     det = D.detect_plain(x, lts_ref, thr, search, advance, decimate)
     lp, pkt = D.extract_lane_major(x, torch.where(det.detected, det.start, 0))
     consts = F.chain_consts(x.re.device, wiener_model, wiener_snr_db)
@@ -91,58 +81,28 @@ def raw_rx_txconst_fused(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx,
         return _launch(x, lts_ref, txs, tpre, **kw)
 
 
-def bind(lib):
-    """(launch, error string) of a library built from csrc/raw_chain.cu (or
-    from a variant of it), with the ctypes signatures of its functions set."""
-    fn = lib.raw_chain_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.raw_chain_attributes.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    lib.raw_chain_attributes.restype = ctypes.c_int
-    err_string = lib.raw_chain_error_string
-    err_string.argtypes = [ctypes.c_int]
-    err_string.restype = ctypes.c_char_p
-    return fn, err_string
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    return bind(_build.load("raw_chain"))
-
-
 def kernel_attributes(dtype: torch.dtype = torch.bfloat16, sync: bool = False,
                       stream_sums: bool = True, search: int = 192, decimate=True,
                       lib=None) -> dict:
-    """The kernel that `raw_rx_txconst_fused` launches for streams of
-    ``dtype`` with these options, on the current card: registers and local
-    (spill) bytes a thread, shared bytes a block, and resident blocks per SM
-    (32 streams a block).  ``lib``: another build of the source."""
-    lib = lib or _build.load("raw_chain")
-    _, err_string = bind(lib)
+    """`_ffi.attributes` of the kernel that `raw_rx_txconst_fused` launches
+    for streams of ``dtype`` with these options (32 streams a block).
+    ``lib``: a card probe's build (`Library.at`)."""
     stride, decimated = D.stride_of(decimate)
-    out = (ctypes.c_int * 4)()
-    F.raise_on_error(lib.raw_chain_attributes(D.STORAGE[dtype], int(sync), int(stream_sums),
-                                              search, stride, decimated, out),
-                     "raw_chain", err_string)
-    return dict(zip(D.ATTRIBUTES, out))
+    return _ffi.attributes((lib or LIB).raw_chain_attributes, STORAGE[dtype], sync,
+                           stream_sums, search, stride, decimated)
 
 
 def _launch(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx, threshold, search, advance, eps,
             sync, serve, wiener_model, wiener_snr_db, lsb, stream_sums, equalize_with,
-            decimate, kernel=None) -> dict:
-    """One launch; ``kernel`` = `bind` of another build of the source (the
-    card probe's variants), else the package's own."""
+            decimate, lib=None) -> dict:
+    """One launch; ``lib``: a card probe's build of the source (`Library.at`)."""
     thr = D.DEFAULT_THRESHOLD if threshold is None else threshold
     spans.phase("check")
     D.check_streams(x, lts_ref, search)
-    _check_tx(x, txs, tpre, equalize_with)
+    F.check_equalize_with(equalize_with)
+    F.check_tx_spectra(txs, tpre, x.re.device)
     spans.phase()
-    require_cuda(x.re)
     stride, decimated = D.stride_of(decimate)
-    fn, err_string = kernel or _kernel_fn()
     ns, b = x.re.shape
     dev = x.re.device
     storage = x.re.dtype
@@ -152,15 +112,12 @@ def _launch(x: Cplx, lts_ref: Cplx, txs: Cplx, tpre: Cplx, threshold, search, ad
     out, outs = F.chain_outputs(b, dev, eq_dtype, serve, not stream_sums, stream_sums)
     rows = D.detection_rows(b, dev)
     spans.phase("launch")
-    ptrs = F.pointer_table([*x, *lts_ref, *txs, *tpre, *consts, *outs, *rows])
-    with torch.cuda.device(dev):
-        err = fn(ptrs, len(ptrs), D.STORAGE[storage], F.EQUALIZE_WITH.index(equalize_with),
-                 b, ns, float(eps), float(lsb), sync, stream_sums, float(thr), int(search),
-                 int(advance), stride, decimated, torch.cuda.current_stream(dev).cuda_stream)
-    F.raise_on_error(err, "raw_chain", err_string)
+    _ffi.launch((lib or LIB).raw_chain_launch, [*x, *lts_ref, *txs, *tpre, *consts, *outs, *rows],
+                STORAGE[storage], F.EQUALIZE_WITH.index(equalize_with), b, ns, float(eps),
+                float(lsb), sync, stream_sums, float(thr), int(search), int(advance), stride,
+                decimated, counter=_count_launch)
     spans.phase()
-    _count_launch()
     det, coarse, start, metric = rows
-    _count_torch()   # det != 0: one elementwise kernel
+    _ffi.count_torch()   # det != 0: one elementwise kernel
     out.update(detected=det != 0, coarse=coarse, start=start, metric=metric)
     return out

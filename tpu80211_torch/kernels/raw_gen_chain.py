@@ -24,7 +24,6 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -34,10 +33,11 @@ import torch
 from tpu80211_torch import constants as C
 from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.datasets.synthetic_sc import noise_scale
-from tpu80211_torch.kernels import _build, require_cuda
+from tpu80211_torch.kernels import _ffi
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
 from tpu80211_torch.kernels import gen_chain as G
+from tpu80211_torch.kernels._ffi import DOUBLE, FLOAT, INT, INT_PTR, PTR
 from tpu80211_torch.ops import channel
 from tpu80211_torch.utils import spans
 
@@ -49,7 +49,10 @@ N_DISTINCT = (1 + C.N_BLOCKS) * C.N_FFT  # a frame's distinct samples: LTS and b
 _TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 _count_call = spans.counter("call.gen_raw_system")
 _count_launch = spans.counter("launch.raw_gen_chain")
-_count_torch = spans.counter("launch.torch")
+LIB = _ffi.Library("raw_gen_chain", {
+    "raw_gen_launch": (PTR, INT, INT, INT, INT, FLOAT, FLOAT, INT, DOUBLE, INT, INT, INT, PTR),
+    "raw_gen_attributes": (INT, INT, INT, INT_PTR),
+})
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,20 +188,13 @@ def gen_raw_plain(seed, batch: int, txs: Cplx, tpre: Cplx, lts_ref: Cplx, ns: in
 
 
 def _check(batch, ns, txs, tpre, lts_ref, equalize_with, cfo_khz) -> None:
-    if batch < LANES or batch % LANES:
-        raise ValueError(f"batch must be a positive multiple of {LANES}, got {batch}")
     span_of(ns)
     D.check_length(ns)  # so the detection of the field takes it: ns >= 1408
     if cfo_khz < 0.0:
         raise ValueError(f"cfo_khz must be >= 0, got {cfo_khz}")
     G._check(batch, txs, tpre, torch.float32)
-    if equalize_with not in F.EQUALIZE_WITH:
-        raise ValueError(f"equalize_with must be one of {F.EQUALIZE_WITH}, got {equalize_with!r}")
-    for t in lts_ref:
-        if tuple(t.shape) != (D.LAG,) or t.dtype != torch.float32:
-            raise ValueError(f"lts_ref: want ({D.LAG},) float32, got {tuple(t.shape)} {t.dtype}")
-        if t.device != txs.re.device or not t.is_contiguous():
-            raise ValueError(f"lts_ref must be contiguous on {txs.re.device}")
+    F.check_equalize_with(equalize_with)
+    D.check_lts_ref(lts_ref, txs.re.device)
 
 
 # -- the kernel ------------------------------------------------------------------------------
@@ -228,49 +224,18 @@ def gen_raw_system(seed, batch: int, txs: Cplx, tpre: Cplx, lts_ref: Cplx, ns: i
         return _launch(*args)
 
 
-def bind(lib):
-    """(launch, error string) of a library built from csrc/raw_gen_chain.cu
-    (or from a variant of it), with their ctypes signatures set."""
-    fn = lib.raw_gen_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_double, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.raw_gen_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.raw_gen_attributes.restype = ctypes.c_int
-    err_string = lib.raw_gen_error_string
-    err_string.argtypes = [ctypes.c_int]
-    err_string.restype = ctypes.c_char_p
-    return fn, err_string
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    return bind(_build.load("raw_gen_chain"))
-
-
 def kernel_attributes(sync: bool = False) -> dict:
-    """The compiled kernel without (``sync`` False) or with a CFO, on the
-    current card: registers and local (spill) bytes a thread, shared bytes
-    a block, and resident blocks per SM (32 streams a block)."""
-    _, err_string = _kernel_fn()  # binds the library's signatures
-    lib = _build.load("raw_gen_chain")
-    out = (ctypes.c_int * 4)()
-    stride, _ = D.stride_of(True)
-    F.raise_on_error(lib.raw_gen_attributes(int(sync), SEARCH, stride, out), "raw_gen_chain",
-                     err_string)
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
+    """`_ffi.attributes` of the kernel without (``sync`` False) or with a
+    CFO (32 streams a block)."""
+    return _ffi.attributes(LIB.raw_gen_attributes, sync, SEARCH, D.stride_of(True)[0])
 
 
 def _launch(seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshold,
-            equalize_with, cfo_khz, return_field, kernel=None) -> dict:
-    """One launch; ``kernel`` = `bind` of another build of the source (the
-    card probe's variants), else the package's own."""
+            equalize_with, cfo_khz, return_field, lib=None) -> dict:
+    """One launch; ``lib``: a card probe's build of the source (`Library.at`)."""
     spans.phase("check")
     _check(batch, ns, txs, tpre, lts_ref, equalize_with, cfo_khz)
     spans.phase()
-    require_cuda(txs.re)
-    fn, err_string = kernel or _kernel_fn()
     dev = txs.re.device
     stride, _ = D.stride_of(True)
     cc = G.channel_consts(dev, channel_model)
@@ -285,18 +250,16 @@ def _launch(seed, batch, txs, tpre, lts_ref, ns, snr_db, channel_model, threshol
                     for _ in range(2)))
     cfo_true = torch.empty(batch, dtype=torch.float32, device=dev)
     spans.phase("launch")
-    ptrs = F.pointer_table([*txs, *tpre, *consts, *lts_ref, *_idft_consts(dev), *cc.wc,
-                            cc.tscale, G.seed_tensor(seed, dev), *field, frame, *outs, *det_rows,
-                            offs, *h_true, cfo_true])
-    with torch.cuda.device(dev):
-        err = fn(ptrs, len(ptrs), batch, ns, cc.tscale.shape[0], noise_scale(snr_db),
-                 cfo_scale(cfo_khz), F.EQUALIZE_WITH.index(equalize_with), float(threshold),
-                 SEARCH, ADVANCE, stride, torch.cuda.current_stream(dev).cuda_stream)
-    F.raise_on_error(err, "raw_gen_chain", err_string)
+    _ffi.launch((lib or LIB).raw_gen_launch,
+                [*txs, *tpre, *consts, *lts_ref, *_idft_consts(dev), *cc.wc, cc.tscale,
+                 G.seed_tensor(seed, dev), *field, frame, *outs, *det_rows, offs, *h_true,
+                 cfo_true],
+                batch, ns, cc.tscale.shape[0], noise_scale(snr_db), cfo_scale(cfo_khz),
+                F.EQUALIZE_WITH.index(equalize_with), float(threshold), SEARCH, ADVANCE, stride,
+                counter=_count_launch)
     spans.phase()
-    _count_launch()
     det, _, start, metric = det_rows
-    _count_torch()   # det != 0: one elementwise kernel
+    _ffi.count_torch()   # det != 0: one elementwise kernel
     out.update(detected=det != 0, start=start, metric=metric, offsets=offs, h_true=h_true,
                cfo_true=cfo_true)
     if return_field:

@@ -57,7 +57,7 @@ import torch
 
 from tpu80211_torch.cplx import Cplx
 from tpu80211_torch.datasets.loader import load_capture
-from tpu80211_torch.kernels import _build, _variants
+from tpu80211_torch.kernels import _build, _ffi, _variants
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
 from tpu80211_torch.kernels import raw_gen_chain as RG
@@ -136,10 +136,10 @@ def main(argv: list[str]) -> int:
                 print(f"{tag} {name}: registers {regs}, spill stores {spills} "
                       "(instantiations in nvcc's order)")
         want = None
-        for name, (lib, _, _) in built.items():
-            kernel = RG.bind(lib)
+        for name, (path, _, _) in built.items():
+            lib = RG.LIB.at(path)
             run = lambda: RG._launch(SEED, B, *txc, lts, NS, 20.0, None, 0.5, "h_mmse",  # noqa: E731
-                                     0.0, False, kernel=kernel)
+                                     0.0, False, lib=lib)
             got = run()
             want = want or got
             same = torch.equal(got["start"], want["start"])
@@ -147,13 +147,12 @@ def main(argv: list[str]) -> int:
                   f"{int(got['detected'].sum())} of {B}, starts {'==' if same else '!='} as_is",
                   flush=True)
         out = Cplx(torch.empty_like(sig.re), torch.empty_like(sig.im))
-        ptrs = D.pointer_table([*sig, *noise, offs, *out])
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for name, (lib, _, _) in placed.items():
-            lib = D.bind(lib)
+        for name, (path, _, _) in placed.items():
+            lib = D.LIB.at(path)
             run = lambda: D._launch_place(sig, noise, offs, lib=lib)  # noqa: E731
-            bare = lambda: lib.place_launch(ptrs, len(ptrs), D.STORAGE[torch.bfloat16],  # noqa: E731
-                                            D.STORAGE[torch.float32], NS, B, stream)
+            bare = lambda: _ffi.launch(lib.place_launch, [*sig, *noise, offs, *out],  # noqa: E731
+                                       _ffi.STORAGE[torch.bfloat16], _ffi.STORAGE[torch.float32],
+                                       NS, B)
             print(f"place {name}: {_variants.time_ms(run):.4f} ms through the wrapper, "
                   f"{_variants.time_ms(bare):.4f} ms the launch alone", flush=True)
     return 0
