@@ -173,6 +173,64 @@ def make_streams(seed: int, b: int, ns: int = 2048, noise: float = 1e-4, n_empty
     return x, offs
 
 
+def sweep_tile(stride: int) -> int:
+    """Grid points a tile of detection's sweep takes (``csrc/detect.cuh``):
+    one a warp on a grid of stride 16 and up, 64/stride a warp below."""
+    return 8 * (1 if stride >= 16 else 64 // stride)
+
+
+def sweep_streams(stride: int, seed: int = 0, ns: int = 2048, b: int = 61) -> np.ndarray:
+    """Batch-major complex128 (b, ns) streams that probe detection's sweep
+    at a decimation ``stride``: block 0 (streams 0-31) sweeps the whole
+    grid, block 1 (32 .. b-1: fewer than 32 streams, so dead lanes) stops
+    early.
+
+    * stream 0 crosses only at the last grid point: noise of 10 a plane,
+      then a 64-sample sequence twice in the last 128 rows;
+    * streams 1 and 33 cross first at the last point of the first and the
+      second tile (``sweep_tile``), built the same way at that point;
+    * stream 2 is noise only (undetected among detected streams);
+    * the rest carry the capture's frame at offsets in [40, ns − 1400)
+      over 1e-4 AWGN."""
+    x, _ = make_streams(seed=seed, b=b, ns=ns)
+    rng = np.random.default_rng(seed + 1)
+    nm = (ns - 64) // stride - 64 // stride + 1
+    tile = sweep_tile(stride)
+    for k, point in ((0, nm - 1), (1, tile - 1), (33, 2 * tile - 1)):
+        row = point * stride
+        x[k] = (rng.standard_normal(ns) + 1j * rng.standard_normal(ns)) * 10
+        u = rng.standard_normal(64) + 1j * rng.standard_normal(64)
+        x[k, row:row + 128] = np.concatenate([u, u])
+    x[2] = (rng.standard_normal(ns) + 1j * rng.standard_normal(ns)) * 1e-4
+    return x
+
+
+def nan_after_crossings(x: np.ndarray, detected, coarse, stride: int,
+                        extra: int = 0) -> np.ndarray:
+    """``x`` with every detected stream's rows NaN from ``extra`` rows past
+    the end of its first crossing's window on (the window of grid point c
+    spans rows [c·stride, c·stride + 128); a decimated coarse row is
+    (c − 1)·stride)."""
+    x = x.copy()
+    for k in np.flatnonzero(np.asarray(detected)):
+        x[k, int(coarse[k]) + (stride if stride > 1 else 0) + 128 + extra:] = np.nan
+    return x
+
+
+def storage_planes(x: np.ndarray, storage: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch-major complex streams as lane-major (ns, b) planes in
+    ``storage`` (f32, bf16, or int8: each stream scaled to a peak of 100
+    and rounded, so a quiet stream keeps its shape)."""
+    re, im = (torch.tensor(np.ascontiguousarray(v.T), dtype=torch.float32)
+              for v in (x.real, x.imag))
+    if storage == "int8":
+        peak = torch.maximum(re.abs().amax(0), im.abs().amax(0))
+        re, im = (torch.clamp(torch.round(v * (100 / peak)), -127, 127) for v in (re, im))
+        return re.to(torch.int8), im.to(torch.int8)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[storage]
+    return re.to(dtype), im.to(dtype)
+
+
 def lts_taps() -> np.ndarray:
     """The matched filter's reference: the capture's transmit LTS (the last
     64 samples of its long preamble), complex64."""

@@ -38,7 +38,8 @@ from tpu80211_torch.pipeline import stream as S
 from tpu80211_torch.utils import spans, timing
 
 from _torch_inputs import (TOL, assert_matches, lane_major, lts_taps, make_frames, make_streams,
-                           rel, to_np, torch_planes, with_cfo)
+                           nan_after_crossings, rel, storage_planes, sweep_streams, to_np,
+                           torch_planes, with_cfo)
 
 B = 1000  # ragged: no multiple of the kernels' 32 frames per block
 NS = 2048
@@ -662,6 +663,112 @@ def test_windows_at_the_streams_end_match_plain(dtype, decimate, dev):
     for m in (got["metric"], raw["metric"]):
         err = ((m - want.metric).abs() / want.metric.abs().clamp_min(1e-30)).max()
         assert float(err) <= 1e-5
+
+
+# -- detection's sweep (detect.cuh, phase 1): adversarial blocks, full-sweep twins ----
+
+
+@pytest.fixture(scope="module")
+def full_sweep_twins(tmp_path_factory):
+    """(detect, raw_chain, raw_gen_chain) libraries built with the detection
+    probe's ``full_sweep`` edit: the sweep's stop vote off, every block
+    sweeping the whole grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu80211_torch.kernels import _build, _variants
+    from tpu80211_torch.kernels import detect_variants as DV
+    edits = {"twin": {DV.HEADER: DV.DIAGNOSTICS["full_sweep"]}}
+    out = tmp_path_factory.mktemp("full_sweep_twins")
+    sources = (DV.SOURCES["detect"], DV.SOURCES["raw_chain"], _build.CSRC / "raw_gen_chain.cu")
+    with ThreadPoolExecutor(3) as pool:
+        paths = list(pool.map(lambda src: _variants.build(src, edits, out / src.stem)["twin"][0],
+                              sources))
+    return D.LIB.at(paths[0]), R.LIB.at(paths[1]), RG.LIB.at(paths[2])
+
+
+def _same_bits_or_nan(got: dict, want: dict) -> None:
+    """Every output the same bits (a NaN equal to a NaN of the same bits)."""
+    assert got.keys() == want.keys()
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}
+    for k, v in got.items():
+        pairs = zip(v, want[k]) if isinstance(v, Cplx) else [(v, want[k])]
+        for x, y in pairs:
+            if x is None or y is None:
+                assert x is None and y is None, k
+                continue
+            if x.is_floating_point():
+                x, y = (t.contiguous().view(ints[t.element_size()]) for t in (x, y))
+            assert torch.equal(x, y), k
+
+
+SWEEP_CASES = [(storage, stride) for storage in ("f32", "bf16", "int8") for stride in (16, 32, 64, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage, stride", SWEEP_CASES)
+def test_sweep_matches_plain_and_its_full_sweep_twin(storage, stride, full_sweep_twins, dev):
+    """Blocks built against an early stop (``sweep_streams``: a stream that
+    crosses only at the last grid point, first crossings on the last point
+    of the first and second tile, an undetected stream among detected
+    ones, dead lanes; for detection in f32 and bf16, NaN rows past every
+    detected stream's staged window): detection and the raw receiver (sync, the
+    cell's configuration) find what the plain versions find, index for
+    index, and every output is the full-sweep twin's bit for bit."""
+    x = sweep_streams(stride)
+    b = x.shape[0]
+    taps, txc = _taps(dev), _spectra(dev)
+    clean = Cplx(*(t.to(dev) for t in storage_planes(x, storage)))
+    want = D.detect_plain(clean, taps, decimate=stride)
+    assert bool(want.detected[[0, 1, 33]].all()) and not bool(want.detected[2])
+    kw = dict(decimate=stride, sync=True, stream_sums=True, equalize_with="h_mmse")
+    raw = R.raw_rx_txconst_fused(clean, taps, *txc, **kw)
+    raw_twin = R._launch(clean, taps, *txc, None, 192, 4, 0.0, True, False, None, None, 1.0, True,
+                         "h_mmse", stride, lib=full_sweep_twins[1])
+    raw_want = R.raw_chain_plain(clean, taps, *txc, **kw)
+    planes = clean
+    if storage != "int8":
+        # NaN from 192 rows past each detected stream's staged window (the
+        # plain matched filter's band products reach 128 rows ahead)
+        x = nan_after_crossings(x, want.detected.cpu(), want.coarse.cpu(), stride,
+                                extra=2 * (192 + stride) + 195 - stride)
+        planes = Cplx(*(t.to(dev) for t in storage_planes(x, storage)))
+        want = D.detect_plain(planes, taps, decimate=stride)
+    got = D.detect_streams(planes, taps, decimate=stride)
+    twin = D._launch_detect(planes, taps, D.DEFAULT_THRESHOLD, 192, 4, stride, False,
+                            lib=full_sweep_twins[0])._asdict()
+    torch.cuda.synchronize()
+    for k in ("detected", "coarse", "start"):
+        assert torch.equal(got[k], getattr(want, k)), k
+        assert torch.equal(raw[k], raw_want[k]), k
+    for m, w in ((got["metric"], want.metric), (raw["metric"], raw_want["metric"])):
+        err = ((m - w).abs() / w.abs().clamp_min(1e-30)).max()
+        assert float(err) <= 1e-5
+    assert_matches(raw, raw_want, b, TOL["f32" if storage == "f32" else "bf16"])
+    _same_bits_or_nan(got, twin)
+    _same_bits_or_nan(raw, raw_twin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("snr_db", [-20.0, -10.0, 40.0])
+def test_raw_gen_sweep_equals_its_full_sweep_twin(snr_db, full_sweep_twins, dev):
+    """The Monte Carlo step's kernel (a 20 kHz CFO, channel A, the MMSE
+    blend) at -20 dB (most streams undetected: every block sweeps to the
+    end), -10 dB (undetected streams among detected ones) and 40 dB (every
+    block stops early): every output is the full-sweep twin's bit for bit,
+    and the detection rows are the plain detection's on the field."""
+    txc, lts = _spectra(dev), _taps(dev)
+    args = (7, GEN_B, *txc, lts, NS, snr_db, "A", 0.5, "h_mmse", 20.0, True)
+    got = RG.gen_raw_system(*args)
+    twin = RG._launch(*args, lib=full_sweep_twins[2])
+    torch.cuda.synchronize()
+    _same_bits_or_nan(got, twin)
+    want = D.detect_plain(got["field"], lts, search=RG.SEARCH, advance=RG.ADVANCE, decimate=True)
+    for k in ("detected", "start"):
+        assert torch.equal(got[k], getattr(want, k)), k
+    n = int(got["detected"].sum())
+    assert {-20.0: n < GEN_B // 2, -10.0: GEN_B // 2 < n < GEN_B, 40.0: n == GEN_B}[snr_db], n
 
 
 # local (spill) bytes a thread of the raw receiver's kernel before the

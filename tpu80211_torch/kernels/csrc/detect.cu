@@ -21,9 +21,10 @@
 // its width; a stream longer than that is read in place.  Indices are
 // 32-bit from a 2D grid (strip, plane).
 //
-// What bounds them on this card.  Detection reads NS rows per stream once
-// into the metric scan (~2 x NS x 2 planes loads, coalesced) and evaluates
-// the matched filter at ~2*search + 68 offsets of 64 taps in f64: ~1.5e5
+// What bounds them on this card.  Detection's sweep reads a stream's rows
+// up to the tile of its block's last first crossing, all NS where a stream
+// of the block goes undetected (2 loads a row and plane, coalesced), and
+// evaluates the matched filter at ~2*search + 68 offsets of 64 taps in f64: ~1.5e5
 // f64 FMAs per stream at the default search of 192 as the tensor cores
 // take them (72 taps, 512 offsets), ~4.8e9 at B = 32768 (~0.14 ms at the
 // H100 SXM's 67 TFLOP/s of f64 on the tensor cores, twice its CUDA cores').

@@ -22,14 +22,23 @@
 // f32 once, as the plain version rounds it.
 //
 // Layout: a block holds 32 streams (the lane) x 8 warps.
-//   1. The threshold scan: the metric grid is split into 8 contiguous
-//      ranges, one per warp; lane l reads stream l, so a warp's load is one
-//      row of 32 neighbouring streams (coalesced).  On a grid of stride 16
-//      and up a window is the sum of its 64/stride blocks of products, each
-//      block summed once into a ring of registers; finer grids keep a
-//      running window, restarted at each range's first point.  Undetected
-//      streams then take their peak metric over rows 0 .. 2*search + 126 the
-//      same way (the same rows in every lane).
+//   1. The sweep: the metric grid in grid order, a tile of points at a
+//      time taken by the whole block; lane l reads stream l, so a warp's
+//      load is one row of 32 neighbouring streams (coalesced).  On a grid
+//      of stride 16 and up a window is the sum of its 64/stride blocks of
+//      products: warp g sums the tile's block g once, into a ring in shared
+//      memory that carries the last blocks to the next tile, and after a
+//      barrier forms point g of the tile from its blocks, added in order.
+//      Finer grids give each warp a part of 64/stride points and a running
+//      window restarted at the part's first.  After each tile the warps
+//      publish which lanes crossed; a lane with a crossing stops reading,
+//      and the block stops once every live lane has one.  That is exact:
+//      the first crossing is the least crossing index, every point before
+//      it lies in a tile already taken, and nothing past it moves det,
+//      coarse, start or metric (phases 2-4 read windows from coarse on).
+//      A block with an undetected stream sweeps to the end, and the
+//      stream's peak metric over points 0 .. 2*search/stride is kept as
+//      the sweep passes them.
 //   2. Every detected stream has a window of rows [coarse, coarse + 2*sf +
 //      131) (sf the fine search): the matched filter's 2*sf + 68 offsets of
 //      64 taps and the peak scan's grid points.  The block stages these
@@ -74,6 +83,9 @@ constexpr int MF_ITEM = 8 * MF_ROWS;  // matched-filter offsets an item
 constexpr int MF_K = LAG + 8;      // the Toeplitz block's depth: 64 taps shifted by 0..7
 constexpr int H_PAD = 8;           // zero taps before tap 0 in Smem::h
 constexpr int COPY_UNROLL = 4;     // rows in flight a thread in the copy
+constexpr int RING = 16;           // block sums the sweep keeps: a tile's 8 and the 3 before, rounded up
+constexpr int SWEEP_UNROLL = 8;    // products in flight a thread in a sweep's block sum
+constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_TARGET = 96 * 1024;  // a group's stage and |MF|: two blocks per SM
 
 struct Config {
@@ -135,7 +147,14 @@ struct Smem {
   int n_mf[LANES];       // its matched-filter offsets
   float peak[LANES];     // per stream: the peak metric and the argmax of pair
   int best[LANES];
-  double2 rest[1];       // the group's stage, then its |MF| values, sized at launch
+  double2 rest[1];       // the sweep (phase 1); then a group's stage and |MF| values; sized at launch
+};
+
+// Smem::rest in phase 1: at every search and stride the stage and |MF|
+// values that follow need more room
+struct Sweep {
+  double sums[RING][4][LANES];  // block b of products in slot b mod RING: pr, pi, e1, e2
+  unsigned int hit[2][WARPS];   // lanes each warp has seen cross, by the parity of the tile
 };
 
 // Where a group's staged windows and |MF| values lie in Smem::rest, for
@@ -218,11 +237,11 @@ struct Win {
   }
 };
 
-// The sums of the products j in [d, d + N)
-template <int N, typename X>
+// The sums of the products j in [d, d + N), U products a turn
+template <int N, int U = 4, typename X>
 __device__ __forceinline__ Win block_sums(const X& x, int d) {
   Win w;
-#pragma unroll 4
+#pragma unroll(U)
   for (int j = d; j < d + N; ++j) w.add(x, j, 1.0);
   return w;
 }
@@ -252,17 +271,11 @@ __device__ __forceinline__ void scan_blocks(const X& x, int i0, int i1, Fn&& fn)
   }
 }
 
-// Visit M at grid points i0 .. i1-1 (window start d = i*stride); fn(i, M)
-// returns true to stop.  Strides of 16 and up take block sums; finer grids
-// a running window, whose step adds and takes away `stride` products.
+// M at grid points i0 .. i1-1 of a finer grid by a running window, whose
+// step adds and takes away `stride` products
 template <typename X, typename Fn>
-__device__ __forceinline__ void scan_metric(const X& x, int stride, int i0, int i1, Fn&& fn) {
+__device__ __forceinline__ void scan_running(const X& x, int stride, int i0, int i1, Fn&& fn) {
   if (i0 >= i1) return;
-  switch (stride) {
-    case 16: return scan_blocks<4>(x, i0, i1, fn);
-    case 32: return scan_blocks<2>(x, i0, i1, fn);
-    case 64: return scan_blocks<1>(x, i0, i1, fn);
-  }
   Win w;
   for (int j = i0 * stride; j < i0 * stride + LAG; ++j) w.add(x, j, 1.0);
   for (int i = i0;;) {
@@ -274,6 +287,104 @@ __device__ __forceinline__ void scan_metric(const X& x, int stride, int i0, int 
       w.add(x, d + LAG + j, 1.0);
     }
   }
+}
+
+// Visit M at grid points i0 .. i1-1 (window start d = i*stride); fn(i, M)
+// returns true to stop.  Strides of 16 and up take block sums; finer grids
+// a running window.
+template <typename X, typename Fn>
+__device__ __forceinline__ void scan_metric(const X& x, int stride, int i0, int i1, Fn&& fn) {
+  if (i0 >= i1) return;
+  switch (stride) {
+    case 16: return scan_blocks<4>(x, i0, i1, fn);
+    case 32: return scan_blocks<2>(x, i0, i1, fn);
+    case 64: return scan_blocks<1>(x, i0, i1, fn);
+  }
+  scan_running(x, stride, i0, i1, fn);
+}
+
+__device__ __forceinline__ void put(Sweep& sw, int b, int lane, const Win& w) {
+  double(&v)[4][LANES] = sw.sums[b & (RING - 1)];
+  v[0][lane] = w.pr;
+  v[1][lane] = w.pi;
+  v[2][lane] = w.e1;
+  v[3][lane] = w.e2;
+}
+
+__device__ __forceinline__ Win get(const Sweep& sw, int b, int lane) {
+  const double(&v)[4][LANES] = sw.sums[b & (RING - 1)];
+  Win w;
+  w.pr = v[0][lane];
+  w.pi = v[1][lane];
+  w.e1 = v[2][lane];
+  w.e2 = v[3][lane];
+  return w;
+}
+
+// What phase 1 leaves a thread: the first crossing among the grid points
+// it formed (nm without one), and the peak metric over those before i_pk
+struct Scan {
+  int first;
+  double peak;
+};
+
+// Phase 1: M at the grid points 0 .. nm-1 in grid order, a tile of WARPS
+// parts at a time, taken by the whole block.  Lane l's points are formed in
+// increasing i for as long as no tile before has found lane l a crossing.
+// NB > 0 (strides LAG / NB of 16 and up), a part is one point: warp g sums
+// block i + NB - 1 of the tile's point i = i0 + g into the ring (the first
+// tile also block g < NB - 1), then after a barrier forms point i's window
+// from blocks i .. i + NB - 1, added in that order as scan_blocks adds them.
+// NB == 0 (finer grids), a part is LAG / stride points of a running window.
+// After each tile the warps publish the lanes they saw cross (hit[parity],
+// so no warp writes a word another may still read), and the block stops
+// once every live lane has crossed: every thread reads the same words after
+// the same barrier.
+template <int NB, typename X>
+__device__ __forceinline__ Scan sweep(const X& x, int stride, int nm, int i_pk, double threshold,
+                                      bool live, int lane, int g, Sweep& sw) {
+  constexpr int S = NB ? LAG / NB : 1;  // products a block
+  const int part = NB ? 1 : LAG / stride;
+  Scan r{nm, 0.0};
+  auto visit = [&](int i, double m) {
+    if (i < i_pk) r.peak = fmax(r.peak, m);
+    const bool hit = m > threshold;
+    if (hit && r.first == nm) r.first = i;
+    return hit;
+  };
+  const unsigned dead = ~__ballot_sync(FULL, live);
+  bool active = live;
+  unsigned seen = 0;  // lanes this warp has seen cross
+  if (NB > 1 && g < NB - 1 && active) put(sw, g, lane, block_sums<S, SWEEP_UNROLL>(x, g * S));
+  for (int i0 = 0, k = 0; i0 < nm; i0 += WARPS * part, k ^= 1) {
+    bool hit = false;
+    if (NB) {
+      const int i = i0 + g;
+      if (active && i < nm)
+        put(sw, i + NB - 1, lane, block_sums<S, SWEEP_UNROLL>(x, (i + NB - 1) * S));
+      __syncthreads();  // the tile's block sums are in the ring
+      if (active && i < nm) {
+        Win w = get(sw, i, lane);
+#pragma unroll
+        for (int b = 1; b < NB; ++b) w.add(get(sw, i + b, lane));
+        hit = visit(i, w.metric());
+      }
+    } else if (active) {
+      scan_running(x, stride, i0 + g * part, min(nm, i0 + (g + 1) * part), [&](int i, double m) {
+        hit = visit(i, m);
+        return hit;
+      });
+    }
+    seen |= __ballot_sync(FULL, hit);
+    if (lane == 0) sw.hit[k][g] = seen;
+    __syncthreads();  // the tile's crossings are published
+    unsigned hits = dead;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) hits |= sw.hit[k][w];
+    if (hits == FULL) break;
+    active = live && !(hits >> lane & 1u);
+  }
+  return r;
 }
 
 // The peak metric over grid points [i_lo, i_hi), chunk `ch` of WARPS
@@ -350,19 +461,20 @@ __device__ Result run(const Config& c, Smem& s, long long f, bool live, int lane
     s.h[t] = t >= H_PAD && t < H_PAD + LAG ? make_double2(c.h_re[t - H_PAD], c.h_im[t - H_PAD])
                                             : make_double2(0.0, 0.0);
 
-  // -- 1. first threshold crossing: warp g scans one contiguous range ---------
+  // -- 1. the sweep: the first threshold crossing, and the peak metric over
+  // [0, 2*search) that an undetected stream reports ---------------------------
   {
-    const int chunk = (nm + WARPS - 1) / WARPS;
-    int first = nm;
-    if (live)
-      scan_metric(x, st, g * chunk, min(nm, (g + 1) * chunk), [&](int i, double m) {
-        if (m > c.threshold) {
-          first = i;
-          return true;
-        }
-        return false;
-      });
-    s.ired[g * LANES + lane] = first;
+    const int i_pk = min(nm, (2 * c.search + st - 1) / st);
+    Sweep& sw = *reinterpret_cast<Sweep*>(s.rest);
+    Scan r;
+    switch (st) {
+      case 16: r = sweep<4>(x, st, nm, i_pk, c.threshold, live, lane, g, sw); break;
+      case 32: r = sweep<2>(x, st, nm, i_pk, c.threshold, live, lane, g, sw); break;
+      case 64: r = sweep<1>(x, st, nm, i_pk, c.threshold, live, lane, g, sw); break;
+      default: r = sweep<0>(x, st, nm, i_pk, c.threshold, live, lane, g, sw);
+    }
+    s.ired[g * LANES + lane] = r.first;
+    s.dred[g * LANES + lane] = r.peak;
   }
   __syncthreads();
   int cross = nm;
@@ -373,24 +485,21 @@ __device__ Result run(const Config& c, Smem& s, long long f, bool live, int lane
   const int sf = c.search + (c.decimated ? st : 0);
   const int n_pair = c.ns - 2 * LAG - 4;  // pair entries, NS-132
 
-  // -- the peak metric of an undetected stream, over [0, 2*search) (every
-  // such lane reads the same rows); the windows of the others ----------------
-  s.dred[g * LANES + lane] =
-      live && !det ? peak_chunk(x, st, 0, min(nm, (2 * c.search + st - 1) / st), g) : 0.0;
+  // -- the peak metric of an undetected stream; the windows of the others ----
   if (g == 0) {
     const int i_end = det ? min(coarse + 2 * sf, n_pair) : coarse;
     s.lo[lane] = det ? coarse : -1;
     s.hi[lane] = det ? min(c.ns, coarse + 2 * sf + WIN_EXTRA) : 0;
     s.n_mf[lane] = i_end > coarse ? i_end - coarse + MF_EXTRA : 0;
-  }
-  __syncthreads();
-  if (g == 0) {
     double peak = 0.0;
+    if (live && !det) {
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) peak = fmax(peak, s.dred[w * LANES + lane]);
+      for (int w = 0; w < WARPS; ++w) peak = fmax(peak, s.dred[w * LANES + lane]);
+    }
     s.peak[lane] = static_cast<float>(peak);
     s.best[lane] = 0;
   }
+  __syncthreads();
 
   // -- 2-4. the detected streams' windows, G streams at a time ----------------
   const Layout lay = layout<T>(c.search, st, c.decimated);

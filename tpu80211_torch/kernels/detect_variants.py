@@ -25,10 +25,14 @@ time a variant saves is what the removed part costs.  ``DIAGNOSTICS`` edit
   f64 products; its results are wrong on purpose);
 * ``no_copy``: the windows are not staged (the price of the copy);
 * ``no_peak_scan``: the detected streams' peak metric is skipped;
-* ``running_scan``: the scans take a running window (each product added,
-  then taken away) in place of block sums (the price of the running form);
-* ``no_scan``: the threshold scan is skipped: lane l crosses at grid point
+* ``running_scan``: the sweep and the peak scans take a running window
+  (each product added, then taken away) in place of block sums (the price
+  of the running form);
+* ``no_scan``: the sweep is skipped: lane l crosses at grid point
   2 + l mod 38, so the windows spread as the workload's do;
+* ``full_sweep``: the sweep's stop vote is off: every block sweeps the
+  whole grid, every stream to its end (the price of the grid past the
+  block's last first crossing; its outputs are the tree's bit for bit);
 * ``no_mf``: the matched filter's tiles are skipped.
 
 Through ``raw_chain`` a variant that moves the starts also moves the rows
@@ -36,8 +40,11 @@ the chain reads (``lane0_chain_rows`` prices those), so its time there
 prices more than the part it removes; ``detect`` alone has no such
 confound.
 
-The parent body (each thread summing runs of 8 offsets by f64 FMAs on the
-CUDA cores) took the same names for the same questions: ``no_mf_loads``
+Before the sweep, the threshold scan split the grid into 8 contiguous
+ranges, one a warp, and every stream was scanned to its end; ``no_scan``
+and ``running_scan`` asked the same questions of it.  The body before the
+tensor-core matched filter (each thread summing runs of 8 offsets by f64
+FMAs on the CUDA cores) took the same names for the same questions: ``no_mf_loads``
 made-up rows, ``f32_mf`` f32 sums, ``no_mf`` no runs.  The body before it
 (each lane reading its own window from device memory) was probed with
 ``no_mf_loads``, ``f32_mf``, ``no_peak_scan``, ``no_scan`` and ``no_mf``
@@ -55,8 +62,10 @@ streams of NS = 2,048 samples, the capture's frame at offsets in
 [40, NS − 1,400) over 1e-4 AWGN, decimate 16, ``stream_sums``, h_mmse.
 Prints the card, nvcc's registers and spill stores per instantiation, each
 build's kernel attributes at that shape (bf16), and ms per call (CUDA
-events, median of 5 runs of 10 calls).  Needs a CUDA card and nvcc; the
-builds go to a temporary directory.
+events, median of 5 runs of 10 calls), then ``swept_share`` of the
+workload and of ``gen_raw_system``'s field (the Monte Carlo step: a 20 kHz
+CFO, channel A) at 0, 10, 20, 30 and 40 dB.  Needs a CUDA card and nvcc;
+the builds go to a temporary directory.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ from tpu80211_torch.kernels import _build, _variants
 from tpu80211_torch.kernels import detect_kernel as D
 from tpu80211_torch.kernels import fused_chain as F
 from tpu80211_torch.kernels import raw_chain as R
+from tpu80211_torch.kernels import raw_gen_chain as RG
 
 HEADER = "detect.cuh"
 SOURCES = {"detect": _build.CSRC / "detect.cu", "raw_chain": _build.CSRC / "raw_chain.cu"}
@@ -119,11 +129,15 @@ DIAGNOSTICS = {
         "    if (false)\n      s.pk[t]"),
     "running_scan": (
         "  switch (stride) {\\n    case 16: -> "
-        "  switch (0) {\\n    case 16:"),
+        "  switch (0) {\\n    case 16: ;; "
+        "    switch (st) {\\n      case 16: r = sweep<4> -> "
+        "    switch (0) {\\n      case 16: r = sweep<4>"),
     "no_scan": (
-        "    int first = nm;\n    if (live)\n      scan_metric(x, st, g * chunk -> "
-        "    int first = g == 0 ? 2 + static_cast<int>(f % 38) : nm;\n"
-        "    if (false)\n      scan_metric(x, st, g * chunk"),
+        "    Scan r;\\n    switch (st) { -> "
+        "    Scan r{g == 0 ? 2 + static_cast<int>(f % 38) : nm, 0.0};\\n    if (false) switch (st) {"),
+    "full_sweep": (
+        "    if (hits == FULL) break;\\n    active = live && !(hits >> lane & 1u); -> "
+        "    (void)hits;"),
     "no_mf": "        if (q0 >= n) continue; ->         if (q0 >= 0 * n) continue;",
 }
 CHAIN_DIAGNOSTICS = {
@@ -197,7 +211,39 @@ def main(argv: list[str]) -> int:
             print(f"raw_chain {name}: {_variants.time_ms(run):.4f} ms; detected "
                   f"{int(got['detected'].sum())} of {B}, starts {'==' if same else '!='} as_is; "
                   f"{R.kernel_attributes(lib=lib)}", flush=True)
+    det = D.detect_streams(x, lts, decimate=16)
+    print(f"swept_share workload: {swept_share(det['detected'], det['coarse'], 16, NS):.4f}")
+    for snr in (0.0, 10.0, 20.0, 30.0, 40.0):
+        field = RG.gen_raw_system(SEED, B, *txc, lts, NS, snr, "A", cfo_khz=20.0,
+                                  equalize_with="h_mmse", return_field=True)["field"]
+        det = D.detect_streams(field, lts, decimate=16)
+        print(f"swept_share gen_raw_system {snr:g} dB: "
+              f"{swept_share(det['detected'], det['coarse'], 16, NS):.4f}; detected "
+              f"{int(det['detected'].sum())} of {B}", flush=True)
     return 0
+
+
+def swept_share(detected, coarse, stride: int, ns: int) -> float:
+    """The share of every stream's NS − 64 lag products that detection's
+    sweep takes, from the detection rows alone (``detect.cuh``, phase 1):
+    per block of 32 streams, the tiles of 8·max(1, 64/stride) grid points up
+    to the one that holds the block's last first crossing, or every tile
+    where a stream is undetected; P points span products [0, (P − 1)·stride
+    + 64).  ``coarse`` is the crossing itself at full resolution (stride 1)
+    and (crossing − 1)·stride when decimated, where 0 stands for crossing 0
+    or 1, which share a tile."""
+    det = torch.as_tensor(detected).to("cpu", torch.bool)
+    coarse = torch.as_tensor(coarse).to("cpu", torch.int64)
+    nm = (ns - 64) // stride - 64 // stride + 1
+    tile = 8 * (1 if stride >= 16 else 64 // stride)
+    cross = torch.where(coarse > 0, coarse // stride + 1, 0) if stride > 1 else coarse
+    n_prod = ns - 64
+    taken = 0
+    for b0 in range(0, det.numel(), 32):
+        d, c = det[b0:b0 + 32], cross[b0:b0 + 32]
+        points = nm if not bool(d.all()) else min(nm, (int(c.max()) // tile + 1) * tile)
+        taken += min(n_prod, (points - 1) * stride + 64)
+    return taken / (-(-det.numel() // 32) * n_prod)
 
 
 if __name__ == "__main__":
