@@ -9,6 +9,12 @@ h_mmse columns.  The reference draws the same streams from the seed word
 each kept step used (`perfbench.reference.draws`), receives them with the
 plain detection and chain, and forms the same summaries.  The program
 (``tpu80211_torch``) is imported only inside `setup`.
+
+On a mesh (``mesh`` given to `call`, one rank a card) each dp rank draws
+its own streams from its own seed word (`seed_word` with its rank), and
+the step's summaries pool every rank's streams: each rank forms the
+reference's sums over its own streams (`rank_part`) and rank 0 adds them
+up (`pooled_numbers`).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
 SERVED = ("detect_rate", "timing_in_band_rate", "evm_rms", "h_mmse_mag_nmse",
           "h_mmse_sample")   # what a step leaves the card with
 REF_BLOCK = 8192                        # streams a reference block
-_BATCH_MIX, _STATE_MIX = 65537, 2654435761 % 2**31
+_BATCH_MIX, _STATE_MIX, _RANK_MIX = 65537, 2654435761 % 2**31, 97003
 
 # operations a stream (an f32 or 32-bit integer operation counts 1, a complex
 # multiply-add 8, a log, sqrt, sin or cos 1): a Philox call (10 rounds of 2
@@ -81,11 +87,11 @@ def snr_of(cfg: dict, i: int) -> float:
     return float(snrs[i % len(snrs)])
 
 
-def seed_word(seed: int, i: int, state: int) -> int:
+def seed_word(seed: int, i: int, state: int, rank: int = 0) -> int:
     """The 32-bit key word of step ``i``: the run's seed plus 65537·i plus
     the carried state (read back from the card) times 2654435761 mod 2³¹,
-    wrapped to 32 bits."""
-    return (seed + i * _BATCH_MIX + state * _STATE_MIX) & 0xFFFFFFFF
+    plus 97003 times the dp rank on a mesh, wrapped to 32 bits."""
+    return (seed + i * _BATCH_MIX + state * _STATE_MIX + rank * _RANK_MIX) & 0xFFFFFFFF
 
 
 class State:
@@ -96,28 +102,29 @@ class State:
 
         self.stream, self.cfg, self.device = stream, cfg, device
 
-    def make(self, seed: int, batch: int, cfo_khz: float):
+    def make(self, seed: int, batch: int, cfo_khz: float, mesh=None):
         d, e = self.cfg["deployment"], self.cfg["entry"]
         return self.stream.make_device_stream_step(
             batch, seed=seed, snr_db=d["snr_db"], sample=e["sample"], gen=e["gen"],
             channel_model=d["channel_model"], cfo_khz=cfo_khz,
-            equalize_with=e["equalize_with"], device=self.device)
+            equalize_with=e["equalize_with"], device=self.device, mesh=mesh)
 
 
 def setup(cfg: dict, device) -> State:
     return State(cfg, device)
 
 
-def call(state: State, seed: int, batch: int):
+def call(state: State, seed: int, batch: int, mesh=None):
     """The timed path: the program's device stream step and its first state,
-    ``(step, state0)``; the loop drives ``step(i, state)``."""
-    return state.make(seed, batch, state.cfg["deployment"]["cfo_khz"])
+    ``(step, state0)``; the loop drives ``step(i, state)``.  ``mesh``: the
+    program's ('dp', 'blk') mesh, ``batch`` then the streams of every rank."""
+    return state.make(seed, batch, state.cfg["deployment"]["cfo_khz"], mesh)
 
 
-def control(state: State, seed: int, batch: int):
+def control(state: State, seed: int, batch: int, mesh=None):
     """The control: the step without the CFO passed on, as the stream ran it
     before it took ``cfo_khz``: no CFO drawn, none corrected."""
-    return state.make(seed, batch, 0.0)
+    return state.make(seed, batch, 0.0, mesh)
 
 
 class Reference:
@@ -177,7 +184,7 @@ class Reference:
                 hr, hi = o["h_mmse"]
                 h_sample.append(torch.complex(hr.double(), hi.double())[:, :sample - first])
         n_det = acc["detected"]
-        return {"detected": n_det, "in_band": acc["in_band"],
+        return {"detected": n_det, "in_band": acc["in_band"], "evm_sum": acc["evm"],
                 "evm_rms": math.sqrt(acc["evm"] / (n_det * self.evm_den)) if n_det else math.nan,
                 "h_mmse_mag_nmse": acc["mag_err"] / acc["mag_ref"],
                 "h_sample": torch.cat(h_sample, 1).cpu()}
@@ -285,3 +292,66 @@ class Numbers:
 
 def compare(numbers: Numbers, got: dict, want: dict) -> None:
     numbers.add(got, want)
+
+
+def rank_part(reference: Reference, cfg: dict, seed: int, rank: int, local: int,
+              kept: list) -> dict:
+    """One dp rank's part of the check on a mesh: for each kept step
+    ``(i, state read back before it, record)``, the reference's counts and
+    EVM sum over this rank's ``local`` streams (drawn from its own seed
+    word), with the step's pooled record; and this rank's sampled h_mmse
+    columns against the reference's (the largest error, the largest
+    reference magnitude)."""
+    steps, h_err, h_ref = [], 0.0, 0.0
+    for i, state_in, record in kept:
+        want = reference.step(seed_word(seed, i, state_in, rank), snr_of(cfg, i), local,
+                              record["h_mmse_sample"].shape[0])
+        steps.append({"i": i, "state": state_in, "detected": want["detected"],
+                      "in_band": want["in_band"], "evm": want["evm_sum"],
+                      "record": {k: float(record[k]) for k in
+                                 ("detect_rate", "timing_in_band_rate", "evm_rms")}})
+        g = torch.from_numpy(np.asarray(record["h_mmse_sample"])).to(torch.complex128).T
+        diff = (g - want["h_sample"]).abs()
+        h_err = math.nan if bool(torch.isnan(diff).any()) else max(h_err, float(diff.max()))
+        h_ref = max(h_ref, float(want["h_sample"].abs().max()))
+    return {"steps": steps, "h_rel": h_err / h_ref if h_ref > 0 else math.nan}
+
+
+class PooledNumbers(Numbers):
+    """The numbers compared on a mesh, each the worst kept step's or rank's:
+
+    * ``detect_miss``, ``timing_miss``, ``evm_rel``: the pooled summary the
+      ranks read back (rank 0's) against the reference's counts and EVM sum
+      added over every rank's streams (the mesh step reports no
+      ``h_mmse_mag_nmse``, so no ``nmse_rel``);
+    * ``h_rel``: the worst rank's, over its own sampled columns;
+    * ``state_split``: the kept steps whose carried state, read back before
+      them, is not the same on every rank.
+    """
+
+    def __init__(self, batch: int):
+        super().__init__(batch)
+        del self.out["nmse_rel"]
+        self.out["state_split"] = 0.0
+
+    def add_pooled(self, steps: list[dict], evm_den: float) -> None:
+        """One kept step as each rank saw it (rank 0 first)."""
+        n, got = self.batch, steps[0]["record"]
+        det, in_band = sum(s["detected"] for s in steps), sum(s["in_band"] for s in steps)
+        evm = math.sqrt(sum(s["evm"] for s in steps) / (det * evm_den)) if det else math.nan
+        self._worst("detect_miss", abs(round(got["detect_rate"] * n) - det))
+        self._worst("timing_miss", abs(round(got["timing_in_band_rate"] * n) - in_band))
+        self._worst("evm_rel", self._rel(got["evm_rms"], evm))
+        self.out["state_split"] += len({s["state"] for s in steps}) > 1
+
+
+def pooled_numbers(parts: list[dict], batch: int, evm_den: float) -> dict:
+    """`PooledNumbers` from every rank's `rank_part`, rank 0 first; ``batch``
+    the streams of every rank a step."""
+    num = PooledNumbers(batch)
+    for steps in zip(*(p["steps"] for p in parts)):
+        if len({s["i"] for s in steps}) > 1:
+            raise RuntimeError(f"the ranks kept different steps: {[s['i'] for s in steps]}")
+        num.add_pooled(list(steps), evm_den)
+    rel = [p["h_rel"] for p in parts]
+    return {**num.out, "h_rel": math.nan if any(map(math.isnan, rel)) else max(rel)}

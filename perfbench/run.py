@@ -13,8 +13,16 @@ the per-layer metrics, ``busy_s``, ``window_s`` and ``breakdown``; with
 one JSON object; the numbers compared, each beside its limit, are the last
 lines of standard error and the last key of that object.
 
+A cell on n > 1 cards runs one process a card (`perfbench/world.py`): this
+process is rank 0, on ``cuda:0``, and prints the line, whose numbers pool
+every rank's (frames, calls and the window over all cards, the fullest
+card's peak, ``busy_s`` and ``window_s`` averaged over the cards, the check
+over every rank's outputs); rank 0's own trace, spans and counters give the
+one-card view.
+
 It exits non-zero, printing no result, without the card(s), or if a module
-of JAX or of the JAX package is loaded once the window has closed.
+of JAX or of the JAX package is loaded once the window has closed (on any
+rank), or if any rank fails.
 """
 
 from __future__ import annotations
@@ -52,10 +60,12 @@ def card_limit() -> str:
 
 
 def run_cell(cell: S.Cell, seed: int, seconds: float, trace: bool, device,
-             call=None, t_start: float | None = None) -> dict:
+             call=None, t_start: float | None = None, world=None) -> dict | None:
     """One run of ``cell``: set-up, the window, the metrics, the check.
     ``call`` replaces the configuration's entry (the control, a planted
-    fault).  Returns the result line's fields, ``checks`` last."""
+    fault).  ``world``: this rank's `perfbench.world.World` where the cell
+    runs one rank a card.  Returns the result line's fields, ``checks``
+    last; None on a rank above 0."""
     import torch
 
     from perfbench.reference.chain import no_tf32
@@ -65,24 +75,30 @@ def run_cell(cell: S.Cell, seed: int, seconds: float, trace: bool, device,
     t_start = time.perf_counter() if t_start is None else t_start
     mod = cell.module
     state = mod.setup(cell.config, device)
-    loop = cell.loop.Loop(cell, state, call or mod.call, seed, device)
+    ranks = {} if world is None else {"world": world}
+    loop = cell.loop.Loop(cell, state, call or mod.call, seed, device, **ranks)
     loop.prepare()
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
+    if world is not None:
+        world.open_window(seconds)
     setup_s = time.perf_counter() - t_start
 
     tracer = Tracer(trace, seconds, cell.traffic.get("trace_seconds", seconds), device)
     rec = loop.run(seconds, tracer)
     tr = tracer.finish()
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    traces = [tr]
+    if world is not None:
+        rec, traces, peak = world.pool(rec, tr, peak)
 
     batch = cell.traffic.get("batch", cell.config["batch"])
     serve = cell.traffic["loop"] == "serve"
     kind = torch.cuda.get_device_name(device) if cuda else "cpu"
-    ctx = types.SimpleNamespace(cell=cell, records=rec, setup_s=setup_s, trace=tr, kind=kind,
-                                work=mod.work(cell.config, batch, serve))
+    ctx = types.SimpleNamespace(cell=cell, records=rec, setup_s=setup_s, trace=tr,
+                                traces=traces, kind=kind, work=mod.work(cell.config, batch, serve))
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         v = m.reader.read(ctx)
@@ -96,16 +112,21 @@ def run_cell(cell: S.Cell, seed: int, seconds: float, trace: bool, device,
     no_tf32()
     reference = mod.Reference(cell.config, device)
     numbers = loop.check(reference)
+    if numbers is None:   # a rank above 0: its part of the check went to rank 0
+        return None
     checks = {k: {"value": v, "limit": cell.limits[k]} for k, v in numbers.items()}
     missing = set(cell.limits) - set(numbers)
     correct = not missing and all(holds(c["value"], c["limit"]) for c in checks.values())
 
-    dev = {"platform": "gpu" if cuda else "cpu", "kind": kind, "count": 1,
+    dev = {"platform": "gpu" if cuda else "cpu", "kind": kind,
+           "count": 1 if world is None else world.size,
            "memory_peak_bytes": int(peak)}
     out = {"correct": bool(correct), "attempted": rec.calls, "failed": 0, "metrics": metrics,
            "device": dev}
     if tr is not None:
-        dev.update(busy_s=tr.busy_s(), window_s=tr.window_s)
+        live = [t for t in traces if t is not None]   # averaged over the cards
+        dev.update(busy_s=sum(t.busy_s() for t in live) / len(live),
+                   window_s=sum(t.window_s for t in live) / len(live))
         out["breakdown"] = breakdown(tr)
     out["trace_s"] = {"start": tracer.start_s, "reduce": tracer.reduce_s}
     out["checks"] = {k: {"value": (v["value"] if math.isfinite(v["value"]) else str(v["value"])),
@@ -121,19 +142,31 @@ def main(argv=None) -> int:
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
 
+    chips = next((w["chips"] for w in S.benchmark()["workloads"]
+                  if w["name"] == args.workload), 1)
+    ranks = None
+    if chips > 1:   # one rank a card, this process rank 0: the others start first
+        from perfbench import world
+
+        ranks = world.spawn(chips)
     cell = S.load(args.workload)
     import torch
 
-    chips = cell.workload["chips"]
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        if ranks is not None:
+            ranks.kill()
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         print(f"perfbench: the cell needs {chips} CUDA device(s), this machine has {n}",
               file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-
-    out = run_cell(cell, args.seed, args.seconds, bool(args.trace), device, t_start=T_START)
+    if ranks is not None:
+        job = {"workload": args.workload, "seeds": [args.seed], "seconds": args.seconds,
+               "trace": bool(args.trace)}
+        out = world.run_lead(job, ranks, "cuda", t_start=T_START)[0]
+    else:
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        out = run_cell(cell, args.seed, args.seconds, bool(args.trace), device, t_start=T_START)
     found = forbidden_modules()
     if found:
         print(f"perfbench: modules of JAX or the JAX package are loaded: {', '.join(found)}",

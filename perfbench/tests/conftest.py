@@ -5,56 +5,24 @@ size on the CPU (its ``SMALL``), with the control and with three planted
 faults of a call that returns a batch's outputs (its ``faults``).  A cell
 of the stream loop has no such call: its call gives the program's step,
 and the loop reads each step back.  So it brings its small size and its
-three faults here, and the hook below hands them to that module.  The
-faults:
-
-* ``altered``: one answer altered where it is produced, the first sampled
-  h_mmse column at bin 10;
-* ``half``: half the sampled columns never written (zero);
-* ``unchanged``: a step that returns its first answer and state again.
+three faults here (`rank_faults.altered`, ``half`` and ``unchanged``), and
+the hook below hands them to that module.
 """
 
 from __future__ import annotations
 
-STREAM_SMALL = {"montecarlo_a.single": dict(batch=128, warm_steps=1, sample_steps=1)}
+from perfbench.tests import rank_faults
+
+# montecarlo_a.dp4 here: its mesh step in a world of one (dp 1); two ranks
+# run in test_perfbench_ranks.py
+STREAM_SMALL = {"montecarlo_a.single": dict(batch=128, warm_steps=1, sample_steps=1),
+                "montecarlo_a.dp4": dict(batch=128, dp=1, warm_steps=1, count_steps=3,
+                                         sample_steps=1)}
 
 
 def stream_faults(cell) -> dict:
-    call = cell.module.call
-
-    def wrap(fault):
-        def faulty(state, seed, batch):
-            step, state0 = call(state, seed, batch)
-            return fault(step), state0
-        return faulty
-
-    def altered(step):
-        def s(i, st):
-            summary, h, nxt = step(i, st)
-            h.re[10, 0] += 0.5 * (h.re[10, 0].abs() + 1)
-            return summary, h, nxt
-        return s
-
-    def half(step):
-        def s(i, st):
-            summary, h, nxt = step(i, st)
-            n = h.re.shape[-1]
-            h.re[:, n // 2:] = 0
-            h.im[:, n // 2:] = 0
-            return summary, h, nxt
-        return s
-
-    def unchanged(step):
-        first = []
-
-        def s(i, st):
-            if not first:
-                first.append(step(i, st))
-            return first[0]
-        return s
-
-    return {name: wrap(f) for name, f in
-            (("altered", altered), ("half", half), ("unchanged", unchanged))}
+    return {name: rank_faults.wrap(cell.module.call, getattr(rank_faults, name))
+            for name in ("altered", "half", "unchanged")}
 
 
 def pytest_collection_modifyitems(session, config, items):

@@ -69,14 +69,16 @@ def test_reference_synthesis_is_the_programs(program, snr_db, cfo_khz):
     assert torch.equal(pr, tpre.re) and torch.equal(pi, tpre.im)
 
 
-def test_seed_word_is_the_programs():
+@pytest.mark.parametrize("rank", range(4))
+def test_seed_word_is_the_programs(rank):
+    """Each dp rank's seed word too (rank 0: one card)."""
     from tpu80211_torch.kernels import gen_chain as G
     from tpu80211_torch.pipeline import stream
 
     for seed, i, state in ((0, 0, 0), (2**31 + 5, 7, 65535), (3 * 2**32 + 11, 40000, 123)):
-        want = G.seed_word(stream.kernel_seed(seed, i, torch.tensor(state, dtype=torch.int32)),
-                           "cpu")
-        assert M.seed_word(seed, i, state) == int(want)
+        want = G.seed_word(stream.kernel_seed(seed, i, torch.tensor(state, dtype=torch.int32),
+                                              rank), "cpu")
+        assert M.seed_word(seed, i, state, rank) == int(want)
 
 
 def test_the_cell_loads():
